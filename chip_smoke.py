@@ -11,6 +11,13 @@ PyTorch version on the parity windows, then runs the main path —
 n = 28 qubits in float32 (2 GiB of state) and checks the results against
 closed forms and against the plain torch paths on the same card.
 
+Then it times each kernel window of QFT-28 and Grover-28 alone
+(``window_breakdown``) and one window per redesigned step kind alone
+(``step_breakdown``: the tensor-core matrix steps and the separable diag),
+each beside its bound (the larger of the bytes it must move at 3.35 TB/s
+and its 3xTF32 tensor-core flops at 495 TFLOP/s) and, for the lone matrix
+steps, the one ``torch.matmul`` that computes the same function.
+
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero. The second-to-last lines are the ``kernels`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -33,6 +40,10 @@ N_PARITY = 20
 KERNEL_TOL = 1e-6  # kernel vs plain, normalized n=20 state (max abs)
 E2E_TOL = 1e-5  # f32 end to end at n=28 (max abs)
 REPS = 3
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense): bounds are
+# max(bytes / HBM rate, tensor-core flops / TF32 rate).
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS_PER_S = 495e12
 
 
 def emit(obj) -> None:
@@ -54,6 +65,41 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def window_bound(prog, n: int):
+    """(bound ms, "bytes" or "operations") of one window program: the
+    larger of the bytes it must move (live strips read + written, both
+    planes) at the HBM rate and the tensor-core flops its matrix steps
+    perform in 3xTF32 (3 TF32 products per real product: 2 real products
+    for a real B on both planes, 3 for a complex B by Karatsuba) at the
+    TF32 rate."""
+    from rustqip_tpu_torch.engine import window_kernel as wk
+
+    ns = 1 << prog.h
+    strip_rows = (1 << (n - 7)) >> prog.h
+    moved = (bin(prog.in_mask).count("1") + bin(prog.out_mask).count("1")) \
+        * strip_rows * 128 * 4 * 2
+    products = 0
+    ip = prog.iprog
+    for s in range(prog.nsteps):
+        rec = ip[8 * s: 8 * s + 8]
+        kind = wk.KINDS[rec[0]]
+        live = bin(int(rec[1])).count("1")
+        if kind == "low":
+            products += 3 * live
+        elif kind == "lowr":
+            products += 2 * live
+        elif kind == "rmix":
+            for j in range(ns):
+                if rec[1] >> j & 1:
+                    for i in range(ns):
+                        typ = ip[rec[2] + 2 * (j * ns + i)]
+                        products += {2: 2, 3: 3}.get(int(typ), 0)
+    flops = products * 3 * 2 * strip_rows * 128 * 128
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / TF32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def phase_env():
@@ -115,10 +161,11 @@ def phase_parity():
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
-    from rustqip_tpu_torch.engine.admission import HOPPER
+    from rustqip_tpu_torch.engine.admission import HOPPER, window_seg_sizes
     from rustqip_tpu_torch.engine.parity_windows import (
         build_sequences,
         lowr_sequence,
+        step_windows,
     )
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps
 
@@ -147,6 +194,20 @@ def phase_parity():
         seen |= set(wk.KIND_LAUNCHES)
         worst = max(worst, diff)
         rows.append({"window": name, "kinds": sorted(kinds), "max_abs_diff": diff})
+    for name, hq, ksteps, kinds in step_windows(n):
+        seg = window_seg_sizes(n, hq)
+        prog = wk.encode_window(n, seg, ksteps)
+        kr, ki = re0.clone(), im0.clone()
+        pr, pi = re0.clone(), im0.clone()
+        wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog)
+        wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
+        torch.cuda.synchronize()
+        diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+        if diff > KERNEL_TOL:
+            raise AssertionError(f"{name}: kernel vs plain max|diff| {diff}")
+        worst = max(worst, diff)
+        rows.append({"window": name, "kinds": sorted(kinds), "max_abs_diff": diff})
+    seen |= set(wk.KIND_LAUNCHES)
     missing = set(wk.KINDS) - seen
     if missing:
         raise AssertionError(f"step kinds never launched: {sorted(missing)}")
@@ -182,6 +243,8 @@ def run_circuit(name, build, check):
         re, im, res = cc.run(b.initial_index(handles.get("init", ())), generator=gen)
         torch.cuda.synchronize()
         launches = wk.LAUNCHES["window_sweep"] if kernel else 0
+        if kernel:
+            kinds = dict(wk.KIND_LAUNCHES)
         check(re, im, res, handles)
         ms = cuda_ms(lambda: cc.run(b.initial_index(handles.get("init", ())),
                                     generator=gen))
@@ -195,8 +258,9 @@ def run_circuit(name, build, check):
     row = {"phase": "main_path", "circuit": name, "n": N_MAIN,
            "sweeps": sum(counts.values()), "kwindow_sweeps": counts["kwindow"],
            "plain_plan_sweeps": sum(pcc.sweep_counts().values()),
-           "kernel_launches": launches, "kernel_path_ms": kms,
-           "plain_path_ms": pms, "kernel_vs_plain_max_abs_diff": diff}
+           "kernel_launches": launches, "kind_launches": kinds,
+           "kernel_path_ms": kms, "plain_path_ms": pms,
+           "kernel_vs_plain_max_abs_diff": diff}
     del out
     torch.cuda.empty_cache()
     return row, launches, kcc
@@ -208,9 +272,12 @@ def phase_main():
 
     from rustqip_tpu_torch.algos import grover_iteration, qfft
 
+    from collections import Counter
+
     n = N_MAIN
     rows = []
     total_launches = 0
+    kind_launches = Counter()
 
     # (a) README CSWAP (examples/simple.py) on a 28-qubit state.
     def cswap(b):
@@ -279,6 +346,7 @@ def phase_main():
             raise AssertionError(f"{name}: the main path launched no kernel")
         ccs[name] = cc
         total_launches += launches
+        kind_launches.update(row["kind_launches"])
         rows.append(row)
         emit(row)
     (gr, gi), (nr, ni) = grover_states[False], grover_states[True]
@@ -318,6 +386,8 @@ def phase_main():
         if launches <= 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
         total_launches += launches
+        kinds = dict(wk.KIND_LAUNCHES)
+        kind_launches.update(kinds)
         pr, pi = run_sweeps(n, ps, x0[0].clone(), x0[1].clone())
         diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
         if diff > E2E_TOL:
@@ -329,13 +399,16 @@ def phase_main():
         row = {"phase": "main_path", "circuit": name, "n": n, "gates": len(ops),
                "sweeps": len(ks), "kwindow_sweeps": sum(k == "kwindow" for k, _, _ in ks),
                "plain_plan_sweeps": len(ps), "kernel_launches": launches,
-               "kernel_path_ms": kms, "plain_path_ms": pms,
+               "kind_launches": kinds, "kernel_path_ms": kms, "plain_path_ms": pms,
                "kernel_vs_plain_max_abs_diff": diff}
         rows.append(row)
         emit(row)
         del buf
         torch.cuda.empty_cache()
-    return rows, total_launches, ccs
+    missing = {"low", "lowr", "rmix", "diag"} - set(kind_launches)
+    if missing:
+        raise AssertionError(f"main path never launched step kinds {sorted(missing)}")
+    return rows, total_launches, dict(kind_launches), ccs
 
 
 def phase_window_breakdown(ccs):
@@ -355,6 +428,7 @@ def phase_window_breakdown(ccs):
     x /= x.norm()
     kms = pms = 0.0
     worst = 0.0
+    bound = {"bytes": 0.0, "operations": 0.0}  # QFT-28's windows, by what bounds each
     for name in ("qft28", "grover28_iteration_gate"):
         windows = []
         for seg in ccs[name].sweeps:
@@ -366,10 +440,11 @@ def phase_window_breakdown(ccs):
                 ms = cuda_ms(lambda: wk.window_sweep(n, kr, ki, sg, ksteps, prog=prog))
                 strip_bytes = (x.shape[1] >> prog.h) * 128 * 4 * 2
                 moved = (bin(prog.in_mask).count("1") + bin(prog.out_mask).count("1")) * strip_bytes
+                bound_ms, bound_by = window_bound(prog, n)
                 row = {"h": prog.h, "tile_rows": prog.bt, "steps": prog.nsteps,
-                       "kinds": list(prog.kinds),
-                       "smem_bytes": 256 + (128 * 8 * prog.bt << prog.h) * (2 if prog.scratch else 1),
-                       "ms": ms, "bytes": moved, "GB_per_s": moved / ms / 1e6}
+                       "kinds": list(prog.kinds), "smem_bytes": prog.smem_bytes,
+                       "ms": ms, "bytes": moved, "GB_per_s": moved / ms / 1e6,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
                 if name == "qft28":
                     kr, ki = x[0].clone(), x[1].clone()
                     pr, pi = x[0].clone(), x[1].clone()
@@ -382,6 +457,7 @@ def phase_window_breakdown(ccs):
                         lambda: wk.window_sweep_reference(n, pr, pi, sg, ksteps, prog=prog))
                     kms += ms
                     pms += row["plain_ms"]
+                    bound[bound_by] += bound_ms
                     del pr, pi
                 del kr, ki
                 windows.append(row)
@@ -389,7 +465,98 @@ def phase_window_breakdown(ccs):
               "kernel_ms_sum": sum(w["ms"] for w in windows), "windows": windows})
     if worst > E2E_TOL:
         raise AssertionError(f"QFT-28 windows: kernel vs plain max|diff| {worst}")
-    return kms, pms, worst
+    return kms, pms, worst, bound
+
+
+def phase_step_breakdown(ccs):
+    """One window per redesigned step kind, alone, at n = 28 on a seeded
+    state: kernel ms (CUDA events, median of REPS after a warm-up), the
+    plain version's ms, the bound, and the one PyTorch call that computes
+    the same function where there is one (timed here, used nowhere in the
+    port). Kernel vs plain is checked on every row."""
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine.admission import window_seg_sizes
+    from rustqip_tpu_torch.engine.parity_windows import (
+        rand_u,
+        real_orthogonal,
+        step_windows,
+    )
+
+    n = N_MAIN
+    R = 1 << (n - 7)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    x = torch.randn((2, R, 128), generator=g, device="cuda")
+    x /= x.norm()
+    steps = {w[0]: w for w in step_windows(n)}
+    B = rand_u(7, 61)
+    Br = real_orthogonal(63)
+
+    def n_mats(p):
+        return sum(1 for st in p[1] if st[0] == "rmix"
+                   for b in st[1].values() if b[0] != "scalar")
+
+    # the Grover diffusion corner: its rmix window with the most matrix blocks
+    grover_rmix = max((p for seg in ccs["grover28_iteration_gate"].sweeps
+                       for k, p, _ in seg if k == "kwindow"), key=n_mats)
+
+    def lone(name):
+        _, hq, ksteps, _ = steps[name]
+        return tuple(window_seg_sizes(n, hq)), ksteps
+
+    cases = [
+        ("low_c64_low_matmul", (R,), [("low", B)], None),
+        ("lowr_h0", (R,), [("low", Br)], None),
+        ("rmix_grover_diffusion", *grover_rmix),
+        ("diag_qft_cp_fan", *lone("diag_cp_fan"), None),
+        ("diag_many_groups", *lone("diag_many_groups"), None),
+    ]
+    worst = 0.0
+    for name, seg, ksteps, prog in cases:
+        if prog is None:
+            prog = wk.encode_window(n, seg, ksteps)
+        kr, ki = x[0].clone(), x[1].clone()
+        pr, pi = x[0].clone(), x[1].clone()
+        wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog)
+        wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
+        torch.cuda.synchronize()
+        diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+        if diff > KERNEL_TOL:
+            raise AssertionError(f"step {name}: kernel vs plain max|diff| {diff}")
+        worst = max(worst, diff)
+        ms = cuda_ms(lambda: wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog))
+        plain_ms = cuda_ms(lambda: wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog))
+        del pr, pi
+        bound_ms, bound_by = window_bound(prog, n)
+        row = {"phase": "step_breakdown", "step": name, "n": n, "h": prog.h,
+               "tile_rows": prog.bt, "smem_bytes": prog.smem_bytes,
+               "kinds": list(prog.kinds), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms, "library_ms": None,
+               "max_abs_diff": diff}
+        if name == "low_c64_low_matmul":
+            # the user-facing function (it runs the kernel on copies)
+            row["c64_low_matmul_ms"] = cuda_ms(lambda: wk.c64_low_matmul(kr, ki, B))
+            xc = torch.complex(kr, ki)
+            bc = torch.as_tensor(np.ascontiguousarray(B.T), dtype=torch.complex64,
+                                 device="cuda")
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(xc, bc))
+            row["library_call"] = "torch.matmul complex64 (R,128)@(128,128), full fp32"
+            del xc
+        elif name == "lowr_h0":
+            x2 = torch.cat([kr, ki])
+            bt = torch.as_tensor(np.ascontiguousarray(Br.T), dtype=torch.float32,
+                                 device="cuda")
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(x2, bt))
+            row["library_call"] = "torch.matmul float32 (2R,128)@(128,128), full fp32"
+            del x2
+        del kr, ki
+        torch.cuda.empty_cache()
+        emit(row)
+    return worst
 
 
 def main() -> int:
@@ -411,8 +578,9 @@ def main() -> int:
     phase_env()
     phase_build()
     parity_err = phase_parity()
-    rows, launches, ccs = phase_main()
-    kms, pms, qft_err = phase_window_breakdown(ccs)
+    rows, launches, kind_launches, ccs = phase_main()
+    kms, pms, qft_err, bound = phase_window_breakdown(ccs)
+    step_err = phase_step_breakdown(ccs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
         "name": "window_sweep",
@@ -420,9 +588,15 @@ def main() -> int:
         "source": "rustqip_tpu_torch/csrc/window_sweep.cu",
         "replaces": "rustqip_tpu/engine/pallas_kernels.py:1155",
         "launches": launches,
-        "max_abs_err": max(parity_err, qft_err),
+        "kind_launches": kind_launches,
+        "max_abs_err": max(parity_err, qft_err, step_err),
         "ms": kms,
         "plain_ms": pms,
+        "bound_ms": sum(bound.values()),
+        "bound_by": max(bound, key=bound.get),
+        # no one PyTorch call computes a window's step chain; the lone
+        # matrix steps' library calls are in the step_breakdown rows
+        "library_ms": None,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

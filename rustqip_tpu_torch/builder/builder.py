@@ -203,7 +203,9 @@ class LocalBuilder(
     ``dtype`` selects the simulation precision ('f32'/'f64' or a complex
     dtype; default f32) — the stand-in for the reference's
     ``LocalBuilder<f32|f64>`` type parameter (types.rs:6-13). ``device``
-    is where the state lives (default CPU). ``kernel_ok`` selects the
+    is where the state lives: the CUDA card unless the caller passes
+    ``device="cpu"`` (no fallback: without a card the first tensor made
+    there raises, as torch does). ``kernel_ok`` selects the
     window kernel for unitary runs: by default on for a CUDA f32 state;
     on a CPU state ``kernel_ok=True`` plans the same kernel windows and
     runs them through the kernel's plain torch version.
@@ -215,7 +217,7 @@ class LocalBuilder(
         fuse: bool = True,
         max_fused_qubits: int = None,
         native_conditioning: bool = True,
-        device=None,
+        device="cuda",
         kernel_ok: Optional[bool] = None,
     ):
         self.pipeline: List[PipelineItem] = []
@@ -235,7 +237,7 @@ class LocalBuilder(
         #: QASM gate streams, but gate count multiplies ~20x per nesting
         #: level (the reference's exp_mod explodes to ~5M gates this way).
         self._native_conditioning = native_conditioning
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device)
         self._kernel_ok = kernel_ok
 
     # -- CircuitBuilder primitives ------------------------------------------

@@ -7,26 +7,55 @@
 // pallas_call at :1112) / window_sweep (:1155) with body _window_kernel_body
 // (:308), and c64_low_matmul (:1328) as its one-"low"-step case.
 //
-// What bounds it on an H100: device-memory bytes. A window reads the strips
-// some step consumes and writes the strips some step changes, once each
+// What bounds it on an H100. Element-wise steps (mix, cbf, rbf, cmix, diag)
+// are bound by device-memory bytes: a window reads the strips some step
+// consumes and writes the strips some step changes, once each
 // (window_strip_activity), so a sweep costs (reads + writes) * strip bytes
-// at 3.35 TB/s. Matrix steps ("low", "lowr", matrix blocks of "rmix") are
-// the exception: a 128x128 complex product is 512 FMAs per amplitude, which
-// makes them FP32-bound (67 TFLOP/s) rather than memory-bound.
+// at 3.35 TB/s. Matrix steps ("low", "lowr", matrix blocks of "rmix") do a
+// 128x128 product per row: at FP32-equivalent precision that is 3 TF32
+// tensor-core products per real product (3xTF32), 6 for a real B on both
+// planes and 9 for a complex B (Karatsuba: 3 real products), i.e.
+// 0.83 / 1.25 ms of 495 TFLOP/s tensor work per full-state step at n = 28,
+// next to its 1.28 ms of bytes.
 //
-// What the design does about it: a CTA owns `bt` consecutive strip-local
+// What the design does about it. A CTA owns `bt` consecutive strip-local
 // rows of every strip, all 128 lanes, both planes, in dynamic shared memory
 // (2^h strips x bt x 1 KiB, from the HopperSmemAdmission budget). It loads
-// the input strips with 16-byte loads, runs every step on the tile with a
-// barrier between steps, and stores only the output strips, in place
-// (each CTA reads all of its addresses before it writes them and tiles are
-// disjoint). The step chain is not compiled per window: the host encodes
-// each window once into a step program (int32 records + float32
-// coefficients + deduplicated 128x128 matrix operands) and this one kernel,
-// instantiated per window width h, interprets it. Matrix products are plain
-// FP32 FMAs (no TF32, no tensor cores) with each operand element loaded once
-// per 16 rows. Offsets are 64-bit (an element offset overflows int32 at
-// n >= 31).
+// the input strips with cp.async (the whole tile in flight at once), runs
+// every step on the tile with a barrier between steps, and stores only the
+// output strips, in place (each CTA reads all of its addresses before it
+// writes them and tiles are disjoint). The step chain is not compiled per
+// window: the host encodes each window once into a step program (int32
+// records + float32 coefficients + deduplicated 128x128 matrix operands)
+// and this one kernel, instantiated per window width h, interprets it.
+// Offsets are 64-bit (an element offset overflows int32 at n >= 31).
+//
+// * Matrix steps run on the tensor cores with mma.sync.m16n8k8 in 3xTF32,
+//   the counterpart of the TPU's Precision.HIGHEST: each FP32 operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi) and the product is
+//   lo*hi + hi*lo + hi*hi in FP32 accumulators (plain TF32 is never used).
+//   A step's GEMM M dimension is all its output rows at once (active
+//   strips x bt, <= 128), taken in passes of 32 or 64 rows whose
+//   accumulators live in registers. B streams from L2 in chunks of 16 k,
+//   double-buffered: each thread loads its part of the next chunk into
+//   registers while the tensor cores work on the current one, then splits
+//   it into hi/lo once per CTA as it stores it to shared memory (the A
+//   tile is split as each lane reads its fragments). A complex B uses
+//   Karatsuba: xr.Br, xi.Bi and (xr + xi).(Br + Bi). "low"/"lowr" write a
+//   pass back in place after the barrier that ends its last chunk (every
+//   read of those rows is done); "rmix" accumulates, per output strip,
+//   only the input strips whose block is the staged matrix, adds its
+//   scalar blocks and writes the rmix scratch. The k order inside a chunk
+//   is permuted (A and B alike) so that each lane reads its A and B
+//   fragments with one 16-byte load per two mma k-steps.
+// * "diag" keeps the separable structure of the TPU kernel's diag_factors:
+//   per strip, one row angle per tile row (bt sincosf, in shared memory),
+//   one 128-entry complex lane factor and one 128-entry complex lane vector
+//   per row-support group of mixed monomials, all made on the host; an
+//   element is multiplied by rowfac[r] * lanefac[c] * the vectors of the
+//   groups whose row mask holds. Above DIAG_MASK_MAX groups (the JAX
+//   default, 4) the entry holds angles instead and each element takes one
+//   sincosf of their sum, as the TPU kernel's diag_phase does.
 //
 // Step program (engine/window_kernel.py: encode_window is the one writer):
 // record i = iprog[8*i .. 8*i+8) = {kind, active strip mask, a0..a5}.
@@ -34,16 +63,26 @@
 //             a1 = float offset of an NS x NS complex coefficient table.
 //   RMIX (1): a0 = int offset of NS x NS (type, payload) terms; type 1 =
 //             complex scalar at fprog[payload], 2 = real matrix mats[payload],
-//             3 = complex matrix mats[payload] (re), mats[payload + 1] (im).
-//   DIAG (2): a0 = int offset of NS x (mono int offset, mono float offset,
-//             count), a1 = float offset of NS per-strip constants. A monomial
-//             is (row mask, col mask) ints + one float coefficient; the phase
-//             is sincos(const + sum coeff * [row & rm == rm && col & cm == cm]).
+//             3 = complex matrix mats[payload] (re), mats[payload + 1] (im);
+//             a1 = int offset of the step's distinct matrix operands as
+//             (payload, complex) pairs, a2 = their count, a3 = 1 when any is
+//             complex (three accumulator sets, Karatsuba).
+//   DIAG (2): a0 = int offset of NS x 5 per-strip entries (int offset,
+//             float offset, row monomial count nr, group count G, angle
+//             mode). ints: nr row masks, then G group row masks. floats:
+//             the constant, nr row coefficients, the lane part, then G group
+//             parts; a part is 128 re + 128 im factors, or 128 angles in
+//             angle mode (G > DIAG_MASK_MAX). A row mask rm holds on a row
+//             when row & rm == rm.
 //   CBF  (3) / RBF (4): a0 = lane / row bit p, a1 = row control mask,
 //             a2 = col control mask, a3 = float offset of (a, b, c, d).
 //   CMIX (5): a0 = window-index bit of the pair, a1..a3 as CBF; the active
 //             mask names the pair's low strip.
 //   LOW  (6) / LOWR (7): a0 = operand index (complex: re, im at a0, a0 + 1).
+// Matrix operands are B itself, row-major: mats[idx][c][k] is the weight of
+// input lane k in output lane c (out = x @ B^T); a complex operand is
+// followed by its im part and by re + im (the plain version's Karatsuba
+// operand; the kernel forms the same fp32 sum as it stages B).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,8 +92,12 @@ namespace {
 constexpr int C = 128;
 constexpr int REC = 8;
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int HEADER = 256;  // bytes before the tile: strip base rows
-constexpr int ROWS_PER_PASS = 16;  // matrix steps: rows sharing one operand load
+constexpr int KC = 16;       // matrix steps: k per staged chunk of B
+constexpr int NCHUNK = C / KC;
+constexpr int BPART = C * KC;     // words of one staged part (hi or lo)
+constexpr int DIAG_MASK_MAX = 4;  // most groups an entry holds as factors
 
 enum Kind { K_MIX = 0, K_RMIX = 1, K_DIAG = 2, K_CBF = 3, K_RBF = 4,
             K_CMIX = 5, K_LOW = 6, K_LOWR = 7 };
@@ -71,6 +114,7 @@ struct Params {
   int bt;
   int in_mask;
   int out_mask;
+  int scratch;
 };
 
 struct Tile {
@@ -80,47 +124,358 @@ struct Tile {
   __device__ float* im(int i) const { return base + (size_t)(2 * i + 1) * bt * C; }
 };
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
 __device__ __forceinline__ bool ctrl_on(unsigned row, int col, unsigned rm,
                                         unsigned cm) {
   return (row & rm) == rm && ((unsigned)col & cm) == cm;
 }
 
-// acc[p] += x[r_p, :] @ M[:, c] for the rows r_p = pb + g + 2p of one strip
-// (M = B^T as stored by _window_matrix_operands; Mi == nullptr: real B).
-template <bool COMPLEX>
-__device__ __forceinline__ void mat_accumulate(const float* xr, const float* xi,
-                                               const float* Mr, const float* Mi,
-                                               int pb, int g, int c, int bt,
-                                               float* ar, float* ai) {
-  for (int k = 0; k < C; ++k) {
-    float br = __ldg(Mr + k * C + c);
-    float bi = COMPLEX ? __ldg(Mi + k * C + c) : 0.0f;
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync.m16n8k8
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo within 2^-22 |x|; both halves are exact TF32 values.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One A fragment (16 x 8, row-major) split into TF32 hi and lo.
+struct Frag {
+  uint32_t hi[4];
+  uint32_t lo[4];
+};
+
+// Fragment of mma k-step s from the float4s a lane read of rows g and g+8
+// (chunk-relative k = 4q .. 4q+3): the k order inside a chunk is permuted
+// so that k-slot q of step s is k = 4q + 2s and k-slot q+4 is 4q + 2s + 1,
+// for A and B alike.
+__device__ __forceinline__ void make_frag(Frag& f, float4 v0, float4 v1, int s) {
+  split(s ? v0.z : v0.x, f.hi[0], f.lo[0]);
+  split(s ? v1.z : v1.x, f.hi[1], f.lo[1]);
+  split(s ? v0.w : v0.y, f.hi[2], f.lo[2]);
+  split(s ? v1.w : v1.y, f.hi[3], f.lo[3]);
+}
+
+// d += A B in 3xTF32: lo*hi + hi*lo + hi*hi (the lo*lo term is dropped).
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a, uint4 bh,
+                                     uint4 bl, int s) {
+  const uint32_t h0 = s ? bh.z : bh.x, h1 = s ? bh.w : bh.y;
+  const uint32_t l0 = s ? bl.z : bl.x, l1 = s ? bl.w : bl.y;
+  mma_tf32(d, a.lo, h0, h1);
+  mma_tf32(d, a.hi, l0, l1);
+  mma_tf32(d, a.hi, h0, h1);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// B chunk in registers on its way from L2 to shared memory (register
+// double buffering: the next chunk's loads are in flight while the tensor
+// cores work on the current one).
+struct BStage {
+  float4 r[2];
+  float4 i[2];
+};
+
+__device__ __forceinline__ void stage_load(BStage& st, const float* mats,
+                                           int idx, bool cplx, int kc,
+                                           int tid) {
+  const float* br = mats + (size_t)idx * C * C;
 #pragma unroll
-    for (int p = 0; p < ROWS_PER_PASS / 2; ++p) {
-      int r = pb + g + 2 * p;
-      if (r < bt) {
-        float x = xr[r * C + k];
-        float y = xi[r * C + k];
-        if (COMPLEX) {
-          ar[p] += x * br - y * bi;
-          ai[p] += x * bi + y * br;
-        } else {
-          ar[p] += x * br;
-          ai[p] += y * br;
-        }
-      }
+  for (int u = 0; u < 2; ++u) {
+    const int e = tid + THREADS * u;
+    const int off = (e >> 2) * C + kc * KC + 4 * (e & 3);
+    st.r[u] = __ldg(reinterpret_cast<const float4*>(br + off));
+    st.i[u] = cplx ? __ldg(reinterpret_cast<const float4*>(br + C * C + off))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ void split_store(uint32_t* hi, uint32_t* lo,
+                                            float4 v) {
+  uint4 h, l;
+  split(v.x, h.x, l.x);
+  split(v.y, h.y, l.y);
+  split(v.z, h.z, l.z);
+  split(v.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// Stage layout: part p (0 = re, 1 = im, 2 = re + im) x (hi, lo) at
+// buf + (2p + hl) * BPART, each [output lane c][16 k]. Three-set steps stage
+// all three parts (a real B there has im = 0 and re + im = re).
+__device__ __forceinline__ void stage_store(uint32_t* buf, const BStage& st,
+                                            bool three, int tid) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = tid + THREADS * u;
+    const int soff = (e >> 2) * KC + 4 * (e & 3);
+    split_store(buf + soff, buf + BPART + soff, st.r[u]);
+    if (three) {
+      split_store(buf + 2 * BPART + soff, buf + 3 * BPART + soff, st.i[u]);
+      split_store(buf + 4 * BPART + soff, buf + 5 * BPART + soff,
+                  add4(st.r[u], st.i[u]));
     }
   }
 }
 
+// One matrix step on the tensor cores. Output rows are the rows of the
+// strips in `outm` (M = popcount * bt), taken in passes of 32 or 64 rows:
+// warp (wm, wn) of a WM x WN grid owns 32 rows x (8 NT) lanes, in two
+// m16 blocks. Terms: "low"/"lowr" (terms == nullptr) map each strip
+// through operand `low_idx`; "rmix" sums terms[j][i] over input strips i,
+// matrices through the tensor cores and scalars in the epilogue, into the
+// scratch tile S. Two accumulator sets (re, im planes; all-real steps) or
+// three (Karatsuba: a = xr.Br, b = xi.Bi, c = (xr + xi).(Br + Bi); out =
+// (a - b, c - a - b)).
 template <int NS>
-__global__ void __launch_bounds__(THREADS)
+__device__ void matrix_step(const Params& P, const Tile& T, const Tile& S,
+                            uint32_t* bbuf, int outm, const int* terms,
+                            int low_idx, bool low_cplx, const int* mlist,
+                            int nmat, bool three) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int bt = P.bt;
+  const float* fprog = P.fprog;
+  const int M = __popc(outm) * bt;
+  const int stage_words = (three ? 6 : 2) * BPART;
+  const int cpp = nmat * NCHUNK;  // chunks per pass
+
+  auto mat_of = [&](int m, int& idx, bool& cplx) {
+    if (terms) {
+      idx = mlist[2 * m];
+      cplx = mlist[2 * m + 1] != 0;
+    } else {
+      idx = low_idx;
+      cplx = low_cplx;
+    }
+  };
+
+  for (int base = 0; base < M;) {
+    const int WM = (M - base > 32) ? 2 : 1;
+    const int WN = WARPS / WM;
+    const int NT = (C / 8) / WN;  // 4 or 2 n-tiles of 8 lanes per warp
+    const int wm = warp / WN, wn = warp % WN;
+    const int n0 = wn * NT * 8;
+    // This lane's four output rows: [m16 block][half] -> (strip, row).
+    int rj[2][2], rr[2][2];
+    bool rok[2][2];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int v = base + wm * 32 + mb * 16 + hf * 8 + g;
+        rok[mb][hf] = v < M;
+        int nth = rok[mb][hf] ? v / bt : 0, j = 0;
+        for (int t = 0; t < NS; ++t) {
+          if ((outm >> t) & 1) {
+            if (nth == 0) {
+              j = t;
+              break;
+            }
+            --nth;
+          }
+        }
+        rj[mb][hf] = j;
+        rr[mb][hf] = v % bt;
+      }
+    }
+    float acc[3][2][4][4];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][mb][nt][e] = 0.0f;
+
+    if (cpp) {
+      BStage st;
+      int idx;
+      bool cplx;
+      mat_of(0, idx, cplx);
+      stage_load(st, P.mats, idx, cplx, 0, tid);
+      stage_store(bbuf, st, three, tid);
+      __syncthreads();
+      unsigned use_mask[2][2] = {{0u, 0u}, {0u, 0u}};
+      for (int w = 0; w < cpp; ++w) {
+        const int m = w / NCHUNK, kc = w % NCHUNK;
+        if (w + 1 < cpp) {
+          int idx2;
+          bool cplx2;
+          mat_of((w + 1) / NCHUNK, idx2, cplx2);
+          stage_load(st, P.mats, idx2, cplx2, (w + 1) % NCHUNK, tid);
+        }
+        mat_of(m, idx, cplx);
+        const uint32_t* B = bbuf + (w & 1) * stage_words;
+        if (terms && kc == 0) {
+          // Input strips whose block through this matrix reaches this
+          // lane's rows, per [m16 block][half].
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              unsigned mk = 0;
+              if (rok[mb][hf])
+                for (int i = 0; i < NS; ++i) {
+                  const int* tm = terms + 2 * (rj[mb][hf] * NS + i);
+                  if (tm[0] >= 2 && tm[1] == idx) mk |= 1u << i;
+                }
+              use_mask[mb][hf] = mk;
+            }
+        }
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          unsigned bits =
+              terms ? __reduce_or_sync(0xffffffffu, use_mask[mb][0] | use_mask[mb][1]) : 1u;
+          while (bits) {
+            const int i = __ffs(bits) - 1;
+            bits &= bits - 1;
+            bool use[2];
+            int src[2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              use[hf] = terms ? ((use_mask[mb][hf] >> i) & 1) : rok[mb][hf];
+              src[hf] = terms ? i : rj[mb][hf];
+            }
+            float4 ar[2], ai[2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const size_t off = (size_t)rr[mb][hf] * C + kc * KC + 4 * q;
+              const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+              ar[hf] = use[hf] ? *reinterpret_cast<const float4*>(T.re(src[hf]) + off) : z;
+              ai[hf] = use[hf] ? *reinterpret_cast<const float4*>(T.im(src[hf]) + off) : z;
+            }
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              Frag fr, fi;
+              make_frag(fr, ar[0], ar[1], s);
+              make_frag(fi, ai[0], ai[1], s);
+              if (!three) {
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                  if (nt >= NT) continue;
+                  const int boff = (n0 + nt * 8 + g) * KC + 4 * q;
+                  const uint4 bh = *reinterpret_cast<const uint4*>(B + boff);
+                  const uint4 bl = *reinterpret_cast<const uint4*>(B + BPART + boff);
+                  mma3(acc[0][mb][nt], fr, bh, bl, s);
+                  mma3(acc[1][mb][nt], fi, bh, bl, s);
+                }
+              } else {
+                Frag fs;
+                make_frag(fs, add4(ar[0], ai[0]), add4(ar[1], ai[1]), s);
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                  if (nt >= NT) continue;
+                  const int boff = (n0 + nt * 8 + g) * KC + 4 * q;
+                  uint4 bh = *reinterpret_cast<const uint4*>(B + boff);
+                  uint4 bl = *reinterpret_cast<const uint4*>(B + BPART + boff);
+                  mma3(acc[0][mb][nt], fr, bh, bl, s);
+                  if (cplx) {
+                    bh = *reinterpret_cast<const uint4*>(B + 2 * BPART + boff);
+                    bl = *reinterpret_cast<const uint4*>(B + 3 * BPART + boff);
+                    mma3(acc[1][mb][nt], fi, bh, bl, s);
+                  }
+                  bh = *reinterpret_cast<const uint4*>(B + 4 * BPART + boff);
+                  bl = *reinterpret_cast<const uint4*>(B + 5 * BPART + boff);
+                  mma3(acc[2][mb][nt], fs, bh, bl, s);
+                }
+              }
+            }
+          }
+        }
+        if (w + 1 < cpp)
+          stage_store(bbuf + ((w + 1) & 1) * stage_words, st, three, tid);
+        // Ends every read of this chunk's stage and, after the last chunk,
+        // every read of this pass's rows: "low" may then write them.
+        __syncthreads();
+      }
+    }
+
+    // Epilogue: this lane's (row, 2 lanes) pairs of every n-tile.
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (!rok[mb][hf]) continue;
+        const int j = rj[mb][hf];
+        const size_t rowoff = (size_t)rr[mb][hf] * C;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= NT) continue;
+          const int col = n0 + nt * 8 + 2 * q;
+          float o[2][2];  // [plane][lane pair]
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc[0][mb][nt][2 * hf + e];
+            const float b = acc[1][mb][nt][2 * hf + e];
+            if (three) {
+              const float c = acc[2][mb][nt][2 * hf + e];
+              o[0][e] = a - b;
+              o[1][e] = c - a - b;
+            } else {
+              o[0][e] = a;
+              o[1][e] = b;
+            }
+          }
+          if (terms) {
+            for (int i = 0; i < NS; ++i) {
+              const int* tm = terms + 2 * (j * NS + i);
+              if (tm[0] != 1) continue;
+              const float cr = fprog[tm[1]], ci = fprog[tm[1] + 1];
+              const float2 x = *reinterpret_cast<const float2*>(T.re(i) + rowoff + col);
+              const float2 y = *reinterpret_cast<const float2*>(T.im(i) + rowoff + col);
+              o[0][0] += cr * x.x - ci * y.x;
+              o[0][1] += cr * x.y - ci * y.y;
+              o[1][0] += cr * y.x + ci * x.x;
+              o[1][1] += cr * y.y + ci * x.y;
+            }
+          }
+          const Tile& D = terms ? S : T;
+          *reinterpret_cast<float2*>(D.re(j) + rowoff + col) = make_float2(o[0][0], o[0][1]);
+          *reinterpret_cast<float2*>(D.im(j) + rowoff + col) = make_float2(o[1][0], o[1][1]);
+        }
+      }
+    }
+    base += 32 * WM;
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(THREADS, 1)
 window_sweep_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   long long* sbase = reinterpret_cast<long long*>(smem);
   const int bt = P.bt;
+  const size_t tile_floats = (size_t)NS * 2 * bt * C;
   Tile T{reinterpret_cast<float*>(smem + HEADER), bt};
-  Tile S{T.base + (size_t)NS * 2 * bt * C, bt};  // rmix output scratch
+  Tile S{T.base + tile_floats, bt};  // rmix output scratch
+  // After the tile (and scratch): staged B chunks, or diag row factors.
+  float* aux = T.base + tile_floats * (P.scratch ? 2 : 1);
   const int tid = threadIdx.x;
   const int h = P.h;
   const int* iprog = P.iprog;
@@ -152,14 +507,14 @@ window_sweep_kernel(Params P) {
     float4* tr = reinterpret_cast<float4*>(T.re(i));
     float4* ti = reinterpret_cast<float4*>(T.im(i));
     for (int e = tid; e < n4; e += THREADS) {
-      tr[e] = gr[e];
-      ti[e] = gi[e];
+      cp_async16(tr + e, gr + e);
+      cp_async16(ti + e, gi + e);
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const int c_of = tid & (C - 1);
-  const int g_of = tid >> 7;
   const int nel = bt * C;
 
   for (int s = 0; s < P.nsteps; ++s) {
@@ -206,48 +561,9 @@ window_sweep_kernel(Params P) {
         }
       }
     } else if (kind == K_RMIX) {
-      const int* terms = iprog + rec[2];
-      for (int j = 0; j < NS; ++j) {
-        if (!((active >> j) & 1)) continue;
-        for (int pb = 0; pb < bt; pb += ROWS_PER_PASS) {
-          float ar[ROWS_PER_PASS / 2], ai[ROWS_PER_PASS / 2];
-#pragma unroll
-          for (int p = 0; p < ROWS_PER_PASS / 2; ++p) ar[p] = ai[p] = 0.0f;
-          for (int i = 0; i < NS; ++i) {
-            const int type = terms[2 * (j * NS + i)];
-            const int pay = terms[2 * (j * NS + i) + 1];
-            if (type == 1) {
-              const float cr = fprog[pay], ci = fprog[pay + 1];
-#pragma unroll
-              for (int p = 0; p < ROWS_PER_PASS / 2; ++p) {
-                int r = pb + g_of + 2 * p;
-                if (r < bt) {
-                  float x = T.re(i)[r * C + c_of], y = T.im(i)[r * C + c_of];
-                  ar[p] += cr * x - ci * y;
-                  ai[p] += cr * y + ci * x;
-                }
-              }
-            } else if (type == 2) {
-              mat_accumulate<false>(T.re(i), T.im(i),
-                                    P.mats + (size_t)pay * C * C, nullptr,
-                                    pb, g_of, c_of, bt, ar, ai);
-            } else if (type == 3) {
-              mat_accumulate<true>(T.re(i), T.im(i),
-                                   P.mats + (size_t)pay * C * C,
-                                   P.mats + (size_t)(pay + 1) * C * C,
-                                   pb, g_of, c_of, bt, ar, ai);
-            }
-          }
-#pragma unroll
-          for (int p = 0; p < ROWS_PER_PASS / 2; ++p) {
-            int r = pb + g_of + 2 * p;
-            if (r < bt) {
-              S.re(j)[r * C + c_of] = ar[p];
-              S.im(j)[r * C + c_of] = ai[p];
-            }
-          }
-        }
-      }
+      matrix_step<NS>(P, T, S, reinterpret_cast<uint32_t*>(aux), active,
+                      iprog + rec[2], 0, false, iprog + rec[3], rec[4],
+                      rec[5] != 0);
       __syncthreads();
       for (int j = 0; j < NS; ++j) {
         if (!((active >> j) & 1)) continue;
@@ -258,28 +574,82 @@ window_sweep_kernel(Params P) {
       }
     } else if (kind == K_DIAG) {
       const int* per = iprog + rec[2];
-      const float* consts = fprog + rec[3];
-      for (int i = 0; i < NS; ++i) {
+      // Row factors (cos, sin) or row angles of every active strip row:
+      // bt sincosf per strip, not bt x 128.
+      for (int idx = tid; idx < NS * bt; idx += THREADS) {
+        const int i = idx / bt, r = idx - i * bt;
         if (!((active >> i) & 1)) continue;
-        const int* mono = iprog + per[3 * i];
-        const float* mcoef = fprog + per[3 * i + 1];
-        const int cnt = per[3 * i + 2];
-        const float c0 = consts[i];
-        const long long b = sbase[i];
-        for (int e = tid; e < nel; e += THREADS) {
-          const unsigned row = (unsigned)(b + (e >> 7));
-          const unsigned col = (unsigned)(e & (C - 1));
-          float ang = c0;
-          for (int m = 0; m < cnt; ++m) {
-            const unsigned rm = (unsigned)mono[2 * m];
-            const unsigned cm = (unsigned)mono[2 * m + 1];
-            if ((row & rm) == rm && (col & cm) == cm) ang += mcoef[m];
-          }
+        const int* ent = per + 5 * i;
+        const unsigned* rmk = reinterpret_cast<const unsigned*>(iprog + ent[0]);
+        const float* fl = fprog + ent[1];
+        const unsigned row = (unsigned)(sbase[i] + r);
+        float ang = fl[0];
+        for (int m = 0; m < ent[2]; ++m)
+          if ((row & rmk[m]) == rmk[m]) ang += fl[1 + m];
+        if (ent[4]) {
+          aux[2 * idx] = ang;
+        } else {
           float sn, cs;
           sincosf(ang, &sn, &cs);
-          const float x = T.re(i)[e], y = T.im(i)[e];
-          T.re(i)[e] = x * cs - y * sn;
-          T.im(i)[e] = x * sn + y * cs;
+          aux[2 * idx] = cs;
+          aux[2 * idx + 1] = sn;
+        }
+      }
+      __syncthreads();
+      const int c = tid & (C - 1);
+      for (int i = 0; i < NS; ++i) {
+        if (!((active >> i) & 1)) continue;
+        const int* ent = per + 5 * i;
+        const int nr = ent[2], G = ent[3];
+        const unsigned* gm = reinterpret_cast<const unsigned*>(iprog + ent[0] + nr);
+        const float* lanep = fprog + ent[1] + 1 + nr;
+        const long long b = sbase[i];
+        const float* rowv = aux + 2 * i * bt;
+        float* xr = T.re(i);
+        float* xi = T.im(i);
+        if (!ent[4]) {
+          const float lr = lanep[c], li = lanep[C + c];
+          float gr[DIAG_MASK_MAX], gi[DIAG_MASK_MAX];
+          unsigned gmask[DIAG_MASK_MAX];
+#pragma unroll
+          for (int k = 0; k < DIAG_MASK_MAX; ++k) {
+            const bool on = k < G;
+            gr[k] = on ? lanep[2 * C * (1 + k) + c] : 1.0f;
+            gi[k] = on ? lanep[2 * C * (1 + k) + C + c] : 0.0f;
+            gmask[k] = on ? gm[k] : 0xffffffffu;
+          }
+          for (int e = tid; e < nel; e += THREADS) {
+            const int r = e >> 7;
+            const unsigned row = (unsigned)(b + r);
+            const float fr = rowv[2 * r], fi = rowv[2 * r + 1];
+            float pr = fr * lr - fi * li;
+            float pi = fr * li + fi * lr;
+#pragma unroll
+            for (int k = 0; k < DIAG_MASK_MAX; ++k) {
+              if (k < G && (row & gmask[k]) == gmask[k]) {
+                const float tr = pr * gr[k] - pi * gi[k];
+                pi = pr * gi[k] + pi * gr[k];
+                pr = tr;
+              }
+            }
+            const float x = xr[e], y = xi[e];
+            xr[e] = x * pr - y * pi;
+            xi[e] = x * pi + y * pr;
+          }
+        } else {
+          const float la = lanep[c];
+          for (int e = tid; e < nel; e += THREADS) {
+            const int r = e >> 7;
+            const unsigned row = (unsigned)(b + r);
+            float ang = rowv[2 * r] + la;
+            for (int k = 0; k < G; ++k)
+              if ((row & gm[k]) == gm[k]) ang += lanep[C * (1 + k) + c];
+            float sn, cs;
+            sincosf(ang, &sn, &cs);
+            const float x = xr[e], y = xi[e];
+            xr[e] = x * cs - y * sn;
+            xi[e] = x * sn + y * cs;
+          }
         }
       }
     } else if (kind == K_CBF || kind == K_RBF || kind == K_CMIX) {
@@ -339,32 +709,9 @@ window_sweep_kernel(Params P) {
         }
       }
     } else if (kind == K_LOW || kind == K_LOWR) {
-      const float* Mr = P.mats + (size_t)rec[2] * C * C;
-      const float* Mi = Mr + C * C;
-      for (int i = 0; i < NS; ++i) {
-        if (!((active >> i) & 1)) continue;
-        for (int pb = 0; pb < bt; pb += ROWS_PER_PASS) {
-          float ar[ROWS_PER_PASS / 2], ai[ROWS_PER_PASS / 2];
-#pragma unroll
-          for (int p = 0; p < ROWS_PER_PASS / 2; ++p) ar[p] = ai[p] = 0.0f;
-          if (kind == K_LOW)
-            mat_accumulate<true>(T.re(i), T.im(i), Mr, Mi, pb, g_of, c_of,
-                                 bt, ar, ai);
-          else
-            mat_accumulate<false>(T.re(i), T.im(i), Mr, nullptr, pb, g_of,
-                                  c_of, bt, ar, ai);
-          __syncthreads();  // every read of these rows precedes the writes
-#pragma unroll
-          for (int p = 0; p < ROWS_PER_PASS / 2; ++p) {
-            int r = pb + g_of + 2 * p;
-            if (r < bt) {
-              T.re(i)[r * C + c_of] = ar[p];
-              T.im(i)[r * C + c_of] = ai[p];
-            }
-          }
-          __syncthreads();
-        }
-      }
+      matrix_step<NS>(P, T, S, reinterpret_cast<uint32_t*>(aux), active,
+                      nullptr, rec[2], kind == K_LOW, nullptr, 1,
+                      kind == K_LOW);
     }
     __syncthreads();
   }
@@ -395,13 +742,15 @@ int launch(const Params& p, size_t smem, long long n_tiles, cudaStream_t st) {
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns the CUDA error code of
-// the launch (0 = launched). `scratch` doubles the tile for rmix windows.
+// the launch (0 = launched). `scratch` doubles the tile for rmix windows;
+// `aux_bytes` follow the tile for staged matrix chunks and diag row factors
+// (WindowProgram.aux_bytes).
 extern "C" int rq_window_sweep(float* xr, float* xi, const int* iprog,
                                const float* fprog, const float* mats, int h,
                                int nsteps, int bt, int in_mask, int out_mask,
-                               int scratch, long long s0, long long s1,
-                               long long s2, long long s3, long long s4,
-                               long long n_tiles, void* stream) {
+                               int scratch, int aux_bytes, long long s0,
+                               long long s1, long long s2, long long s3,
+                               long long s4, long long n_tiles, void* stream) {
   Params p;
   p.xr = xr;
   p.xi = xi;
@@ -418,9 +767,11 @@ extern "C" int rq_window_sweep(float* xr, float* xi, const int* iprog,
   p.bt = bt;
   p.in_mask = in_mask;
   p.out_mask = out_mask;
+  p.scratch = scratch;
   const size_t ns = (size_t)1 << h;
-  const size_t smem =
-      HEADER + ns * 2 * (size_t)bt * C * sizeof(float) * (scratch ? 2 : 1);
+  const size_t smem = HEADER +
+                      ns * 2 * (size_t)bt * C * sizeof(float) * (scratch ? 2 : 1) +
+                      (size_t)aux_bytes;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (h) {
     case 0: return launch<1>(p, smem, n_tiles, st);

@@ -87,13 +87,13 @@ class CompiledCircuit:
         dtype,
         fuse: bool = True,
         max_fused_qubits: int = DEFAULT_MAX_FUSED_QUBITS,
-        device=None,
+        device="cuda",
         kernel_ok: Optional[bool] = None,
     ):
         self.n = n
         self.dtype = np.dtype(dtype)
         self.rdtype = real_dtype_of(self.dtype)
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device)
         self.entries = list(entries)
         self.num_measurements = sum(
             1 for e in self.entries if isinstance(e, MeasureEntry)
@@ -298,12 +298,12 @@ def compile_pipeline(
     dtype,
     fuse: bool = True,
     max_fused_qubits: int = DEFAULT_MAX_FUSED_QUBITS,
-    device=None,
+    device="cuda",
     kernel_ok: Optional[bool] = None,
 ) -> CompiledCircuit:
     """Compile (with caching) a lowered pipeline into a CompiledCircuit."""
     dtype = np.dtype(dtype)
-    dev = torch.device(device if device is not None else "cpu")
+    dev = torch.device(device)
     fp = (
         n,
         dtype.str,

@@ -1,10 +1,12 @@
-"""The ten kernel parity windows, built with the port's constructors.
+"""The kernel parity windows, built with the port's constructors.
 
 Port of ``scripts/kernel_parity.py:55-201`` (``build_sequences``): ten op
 sequences whose kernel windows together cover every step kind of the
 window kernel (low, lowr, mix, rmix, diag, cbf, rbf, cmix). The CPU tests
 plan them against the JAX package and ``chip_smoke.py`` holds the CUDA
-kernel against its plain version on them.
+kernel against its plain version on them. ``step_windows`` adds six
+windows written directly as kernel steps, one per shape of the tensor-core
+matrix steps and the separable diag.
 """
 
 from __future__ import annotations
@@ -145,3 +147,52 @@ def lowr_sequence(n: int = N):
         ],
         {"low", "mix"},
     )
+
+
+def real_orthogonal(seed: int) -> np.ndarray:
+    """A seeded real 128 x 128 orthogonal matrix (QR of a Gaussian)."""
+    r = np.random.default_rng(seed)
+    return np.linalg.qr(r.normal(size=(128, 128)))[0]
+
+
+def step_windows(n: int = N):
+    """[(name, window qubits, kernel steps, expected step kinds)]: six
+    windows built directly as kernel steps, one per shape of the two step
+    families the kernel treats specially — the tensor-core matrix steps
+    and the separable diag — so that each shape is held against the JAX
+    package's kernel (interpret mode, on the CPU) and against the plain
+    version (on the card) whatever the planner would merge."""
+    lane = [n - 7 + k for k in range(7)]  # lane qubits, high to low
+    B1, B2 = rand_u(7, 61), rand_u(7, 62)
+    fan = tuple(((3,), (lane[k],), np.pi / (2 << k)) for k in range(7))
+    return [
+        # complex B at h = 0: the c64_low_matmul shape (Karatsuba)
+        ("low_complex_h0", (), [("low", B1)], {"low"}),
+        # real B at h = 4: one GEMM over 16 strips x 8 rows
+        ("lowr_h4", (0, 1, 2, 3), [("low", real_orthogonal(63))], {"lowr"}),
+        # complex and real matrix blocks, a shared operand, scalar blocks
+        ("rmix_complex", (0, 2), [("rmix", {
+            (0, 0): ("mat", B1), (0, 1): ("scalar", 0.3 - 0.2j),
+            (1, 0): ("mat", real_orthogonal(64)), (1, 1): ("mat", B2),
+            (2, 2): ("scalar", 0.5), (2, 3): ("mat", B1),
+            (3, 2): ("mat", B2), (3, 3): ("scalar", -0.4j),
+        })], {"rmix"}),
+        # a QFT controlled-phase fan: one row-support group over 7 lanes,
+        # plus a window-bit CP that folds into a lane monomial on strip 1
+        ("diag_cp_fan", (1,), [("diag", (
+            0.0, (), (), fan + (((1,), (lane[6],), 0.6),),
+        ))], {"diag"}),
+        # six row-support groups: the angle-accumulation regime
+        ("diag_many_groups", (0,), [("diag", (
+            0.15, (((1,), 0.4),), (),
+            tuple(((t,), (lane[t % 7],), 0.2 + 0.2 * t) for t in range(2, 8)),
+        ))], {"diag"}),
+        # constant, row, lane and mixed monomials together (two groups)
+        ("diag_row_lane_mixed", (1, 4), [("diag", (
+            0.25,
+            (((3,), 0.3), ((1, 5), 0.7)),
+            (((lane[1],), 0.2), ((lane[5], lane[6]), -0.5)),
+            (((2,), (lane[2],), 0.9), ((2,), (lane[3], lane[4]), 0.35),
+             ((1,), (lane[4], lane[5]), -0.4), ((5, 6), (lane[0],), 1.3)),
+        ))], {"diag"}),
+    ]

@@ -39,7 +39,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine.admission import hopper_tile_rows
+from rustqip_tpu_torch.engine.admission import (
+    HOPPER_SMEM_BYTES,
+    HOPPER_SMEM_HEADER,
+    hopper_tile_rows,
+)
 from rustqip_tpu_torch.types import MINOR_QUBITS
 
 _C = 1 << MINOR_QUBITS  # 128
@@ -255,9 +259,8 @@ def _window_matrix_operands(steps):
     """Split steps into body tags + matrix operand arrays: real B -> a
     ("lowr", idx) operand, complex B -> ("low", idx) with (re, im, re+im)
     operands at mats[idx:idx+3]; "rmix" block maps reference operands the
-    same way, and byte-equal B^T share one operand. (The CUDA kernel uses
-    the 4-product form, so it reads re and im and never the re+im
-    operand; the layout stays the reference's.)"""
+    same way, and byte-equal B^T share one operand. (``encode_window``
+    hands the kernel each operand transposed back to B.)"""
     body_steps = []
     mats = []
     index_of = {}
@@ -300,6 +303,15 @@ def _window_matrix_operands(steps):
 KINDS = ("mix", "rmix", "diag", "cbf", "rbf", "cmix", "low", "lowr")
 _KIND_CODE = {k: i for i, k in enumerate(KINDS)}
 _REC = 8
+#: Row-support groups a diag entry holds as lane-vector factors; above it
+#: the entry holds angles and the kernel takes one sincos per element (the
+#: JAX package's ``_diag_mask_max`` default, pallas_kernels.py:29).
+DIAG_MASK_MAX = 4
+#: Per-strip diag entry: (int offset, float offset, nr, G, angle mode).
+_DIAG_ENT = 5
+#: Matrix steps stage B in chunks of 16 k x 128 lanes, hi and lo halves,
+#: double-buffered: bytes of one staged part pair (csrc: KC, BPART).
+_BSTAGE_PAIR_BYTES = 2 * _C * 16 * 4
 
 
 @dataclass(eq=False)
@@ -319,7 +331,16 @@ class WindowProgram:
     mats: np.ndarray
     kinds: Tuple[str, ...]
     max_rbf_bit: int
+    #: Shared memory after the tile (and rmix scratch): staged matrix
+    #: chunks or diag row factors.
+    aux_bytes: int = 0
     _dev: Dict[str, tuple] = field(default_factory=dict, repr=False)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (header + tile + aux)."""
+        tile = (_C * 8 * self.bt << self.h) * (2 if self.scratch else 1)
+        return HOPPER_SMEM_HEADER + tile + self.aux_bytes
 
     def tensors(self, device) -> tuple:
         """(iprog, fprog, mats) on ``device``, uploaded once."""
@@ -381,6 +402,7 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
     floats: list = []
     cur = set(in_ids)
     max_rbf = -1
+    stage_parts = 0  # B parts a matrix step stages: 1 (real), 3 (Karatsuba)
 
     def add_complex(v) -> int:
         off = len(floats)
@@ -390,35 +412,59 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
     def mask_of(ids) -> int:
         return sum(1 << i for i in ids)
 
+    lanes = np.arange(_C)
+
+    def lane_angles(terms):
+        """Angle over the 128 lanes of (col qubits, coefficient) terms."""
+        ang = np.zeros(_C)
+        for cq, c in terms:
+            cm = colmask(cq)
+            ang += c * ((lanes & cm) == cm)
+        return ang
+
+    def diag_entry(sg, angle_mode):
+        """One strip's separable diag factors (``diag_factors``:406):
+        the constant and row monomials (angles the kernel sums per row),
+        the lane monomials folded into one lane part, and the mixed
+        monomials grouped by row support, one row mask + lane part each.
+        A part is cos and sin (factor mode) or the angle (angle mode)."""
+        const2, rm2, cm2, mx2 = sg
+        by_row: dict = {}
+        for rq, cq, c in mx2:
+            by_row.setdefault(rq, []).append((cq, c))
+        parts = [lane_angles(cm2)] + [lane_angles(t) for t in by_row.values()]
+        ent = [len(ints), len(floats), len(rm2), len(by_row), int(angle_mode)]
+        ints.extend(rowmask(rq) for rq, _ in rm2)
+        ints.extend(rowmask(rq) for rq in by_row)
+        floats.append(const2)
+        floats.extend(c for _, c in rm2)
+        for ang in parts:
+            floats.extend(ang if angle_mode else np.concatenate(
+                [np.cos(ang), np.sin(ang)]))
+        return ent
+
     for step in body_steps:
         kind = step[0]
         rec = [_KIND_CODE[kind], 0, 0, 0, 0, 0, 0, 0]
         if kind == "diag":
             per = len(ints)
-            ints.extend([0] * (3 * ns))
-            consts = len(floats)
-            floats.extend([0.0] * ns)
+            ints.extend([0] * (_DIAG_ENT * ns))
             active = 0
+            entries: dict = {}  # strips with equal specialized groups share
             for i in sorted(cur):
                 wvals = {wq[j]: (i >> (h - 1 - j)) & 1 for j in range(h)}
-                const2, rm2, cm2, mx2 = _specialize_groups(step[1], wvals)
+                sg = _specialize_groups(step[1], wvals)
+                const2, rm2, cm2, mx2 = sg
                 if not rm2 and not cm2 and not mx2 and const2 == 0.0:
                     continue  # identity on this strip
                 active |= 1 << i
-                monos = (
-                    [(rowmask(rq), 0, c) for rq, c in rm2]
-                    + [(0, colmask(cq), c) for cq, c in cm2]
-                    + [(rowmask(rq), colmask(cq), c) for rq, cq, c in mx2]
+                if sg not in entries:
+                    groups = len({rq for rq, _cq, _c in mx2})
+                    entries[sg] = diag_entry(sg, groups > DIAG_MASK_MAX)
+                ints[per + _DIAG_ENT * i : per + _DIAG_ENT * (i + 1)] = (
+                    entries[sg]
                 )
-                ints[per + 3 * i : per + 3 * i + 3] = [
-                    len(ints), len(floats), len(monos)
-                ]
-                for rmk, cmk, c in monos:
-                    ints.extend([rmk, cmk])
-                for *_, c in monos:
-                    floats.append(c)
-                floats[consts + i] = const2
-            rec[1:4] = [active, per, consts]
+            rec[1:3] = [active, per]
         elif kind in ("cbf", "rbf", "cmix"):
             p, coeffs = step[1], step[2]
             ctrl = step[3] if len(step) > 3 else ()
@@ -441,11 +487,13 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
             rec[1:6] = [active, p, rm, cm, foff]
         elif kind in ("low", "lowr"):
             rec[1:3] = [mask_of(cur), step[1]]
+            stage_parts = max(stage_parts, 3 if kind == "low" else 1)
         elif kind == "rmix":
             blocks = step[1]
             terms = len(ints)
             ints.extend([0] * (2 * ns * ns))
             active = 0
+            distinct: dict = {}  # matrix operand -> complex, first use first
             for jw in range(ns):
                 ent = []
                 for iw in range(ns):
@@ -466,10 +514,17 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
                         typ, pay = 1, add_complex(blk[1])
                     else:
                         typ, pay = (2 if blk[0] == "lowr" else 3), blk[1]
+                        distinct.setdefault(pay, typ == 3)
                     ints[terms + 2 * (jw * ns + iw)] = typ
                     ints[terms + 2 * (jw * ns + iw) + 1] = pay
             cur |= {j for j in range(ns) if active >> j & 1}
-            rec[1:3] = [active, terms]
+            mlist = len(ints)
+            for pay, cplx in distinct.items():
+                ints.extend([pay, int(cplx)])
+            three = any(distinct.values())
+            rec[1:6] = [active, terms, mlist, len(distinct), int(three)]
+            if distinct:
+                stage_parts = max(stage_parts, 3 if three else 1)
         else:  # mix: {(j, i): complex}
             blocks = step[1]
             nzoff = len(ints)
@@ -500,29 +555,36 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         kind = KINDS[rec[0]]
         if kind in ("mix", "rmix", "diag"):
             rec[2] += base
-    for rec in recs:
-        if KINDS[rec[0]] == "diag":
+        if kind == "rmix":
+            rec[3] += base
+        if kind == "diag":
             per = rec[2] - base
             for i in range(ns):
                 if rec[1] >> i & 1:
-                    ints[per + 3 * i] += base
+                    ints[per + _DIAG_ENT * i] += base
     iprog = np.asarray(
         [v for rec in recs for v in rec] + ints, dtype=np.int64
     )
     # masks are unsigned 32-bit; store their bit patterns as int32
     iprog = iprog.astype(np.uint32).view(np.int32)
     fprog = np.asarray(floats + [0.0], dtype=np.float32)
+    # The kernel reads B row-major (row c = output lane c over input lanes
+    # k); _window_matrix_operands keeps the reference's B^T.
     mats_arr = (
-        np.stack(mats).astype(np.float32)
+        np.stack([m.T for m in mats]).astype(np.float32)
         if mats
         else np.zeros((1, _C, _C), dtype=np.float32)
     )
     has_rmix = any(s[0] == "rmix" for s in body_steps)
-    return WindowProgram(
+    bt = hopper_tile_rows(h, has_rmix, seg_sizes[-1])
+    aux = 2 * stage_parts * _BSTAGE_PAIR_BYTES  # double-buffered B stage
+    if any(s[0] == "diag" for s in body_steps):
+        aux = max(aux, (bt << h) * 2 * 4)  # row factors of every tile row
+    prog = WindowProgram(
         n=n,
         seg_sizes=seg_sizes,
         h=h,
-        bt=hopper_tile_rows(h, has_rmix, seg_sizes[-1]),
+        bt=bt,
         in_mask=mask_of(in_ids),
         out_mask=mask_of(out_ids),
         scratch=has_rmix,
@@ -532,7 +594,14 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         mats=np.ascontiguousarray(mats_arr),
         kinds=tuple(sorted({KINDS[r[0]] for r in recs})),
         max_rbf_bit=max_rbf,
+        aux_bytes=aux,
     )
+    if prog.smem_bytes > HOPPER_SMEM_BYTES:
+        raise ValueError(
+            f"window needs {prog.smem_bytes} B of shared memory "
+            f"(> {HOPPER_SMEM_BYTES})"
+        )
+    return prog
 
 
 # ---------------------------------------------------------------------------
@@ -613,10 +682,15 @@ def window_sweep_reference(
         return (((rows[i] & rm) == rm)[:, None]) & ((cols & cm) == cm)[None, :]
 
     def mat_apply(x, y, typ, idx):
+        """(x + i y) @ B^T, B = mats[idx] (+ i mats[idx + 1]): two real
+        products, or three by Karatsuba with the re + im operand, as the
+        kernel forms them."""
         if typ == 2:
-            return x @ mats[idx], y @ mats[idx]
-        mr, mi = mats[idx], mats[idx + 1]
-        return x @ mr - y @ mi, x @ mi + y @ mr
+            return x @ mats[idx].T, y @ mats[idx].T
+        rr = x @ mats[idx].T
+        ii = y @ mats[idx + 1].T
+        m = (x + y) @ mats[idx + 2].T
+        return rr - ii, m - rr - ii
 
     for s in range(prog.nsteps):
         rec = ip[s * _REC : (s + 1) * _REC]
@@ -647,17 +721,44 @@ def window_sweep_reference(
             cur.update(new)
         elif kind == "diag":
             for i in bits(active):
-                mi, mf, cnt = (int(v) for v in ip[rec[2] + 3 * i : rec[2] + 3 * i + 3])
+                io, fo, nr, G, angle_mode = (
+                    int(v) for v in ip[rec[2] + 5 * i : rec[2] + 5 * i + 5]
+                )
                 ang = torch.full(
-                    (rows[i].numel(), _C), float(fp[rec[3] + i]),
+                    (rows[i].numel(),), float(fp[fo]),
                     dtype=torch.float32, device=xr.device,
                 )
-                for k in range(cnt):
-                    on = ctrl_mask(i, int(ip[mi + 2 * k]), int(ip[mi + 2 * k + 1]))
-                    ang = ang + on.to(torch.float32) * float(fp[mf + k])
-                c, sn = torch.cos(ang).to(xr.dtype), torch.sin(ang).to(xr.dtype)
+                for k in range(nr):
+                    on = (rows[i] & int(ip[io + k])) == int(ip[io + k])
+                    ang = ang + on.to(torch.float32) * float(fp[fo + 1 + k])
+                gmasks = [int(v) for v in ip[io + nr : io + nr + G]]
+                width = _C if angle_mode else 2 * _C
+                lane = [
+                    torch.as_tensor(
+                        fp[fo + 1 + nr + width * k : fo + 1 + nr + width * (k + 1)],
+                        device=xr.device,
+                    )
+                    for k in range(1 + G)
+                ]
+                ons = [((rows[i] & gm) == gm)[:, None] for gm in gmasks]
+                if angle_mode:
+                    a = ang[:, None] + lane[0][None, :]
+                    for on, v in zip(ons, lane[1:]):
+                        a = a + on.to(torch.float32) * v[None, :]
+                    pr, pi = torch.cos(a), torch.sin(a)
+                else:
+                    rc, rs = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+                    lr, li = lane[0][None, :_C], lane[0][None, _C:]
+                    pr, pi = rc * lr - rs * li, rc * li + rs * lr
+                    for on, v in zip(ons, lane[1:]):
+                        gr, gi = v[None, :_C], v[None, _C:]
+                        pr, pi = (
+                            torch.where(on, pr * gr - pi * gi, pr),
+                            torch.where(on, pr * gi + pi * gr, pi),
+                        )
+                pr, pi = pr.to(xr.dtype), pi.to(xr.dtype)
                 x, y = cur[i]
-                cur[i] = (x * c - y * sn, x * sn + y * c)
+                cur[i] = (x * pr - y * pi, x * pi + y * pr)
         elif kind in ("cbf", "rbf", "cmix"):
             p, rm, cm, foff = (int(v) for v in rec[2:6])
             a, b, c, d = (cplx(foff + 2 * k) for k in range(4))
@@ -756,7 +857,7 @@ def _lib():
         fn = lib.rq_window_sweep
         fn.argtypes = (
             [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 6
             + [ctypes.c_void_p]
         )
@@ -797,7 +898,8 @@ def window_sweep(
         err = _lib().rq_window_sweep(
             xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
             mats.data_ptr(), prog.h, prog.nsteps, prog.bt, prog.in_mask,
-            prog.out_mask, int(prog.scratch), *seg, srows // prog.bt,
+            prog.out_mask, int(prog.scratch), prog.aux_bytes, *seg,
+            srows // prog.bt,
             torch.cuda.current_stream(xr.device).cuda_stream,
         )
     if err:

@@ -26,7 +26,7 @@ TOL = {"f64": 1e-10, "f32": 1e-5}
 
 
 def test_golden_bell_pair():
-    b = LocalBuilder(dtype="f64")
+    b = LocalBuilder(dtype="f64", device="cpu")
     ra = b.h(b.qubit())
     rb = b.qubit()
     cb = b.condition_with(ra)
@@ -43,7 +43,7 @@ def test_golden_bell_pair():
 
 def test_golden_identity_mask_negation():
     """macro_example.rs: the control(0b110) line's X pair leaves e_0."""
-    b = LocalBuilder(dtype="f64")
+    b = LocalBuilder(dtype="f64", device="cpu")
     ra = b.qudit(3)
     rb = b.qudit(3)
     rb = negate_bitmask(b, rb, 0b110)
@@ -58,7 +58,7 @@ def test_golden_identity_mask_negation():
 def test_golden_inverse_roundtrip():
     """inverse_example.rs: gamma = toffoli(ra, rb); toffoli(rb, ra), then
     its inverted replay: the identity, through real decompositions."""
-    b = LocalBuilder(dtype="f64")
+    b = LocalBuilder(dtype="f64", device="cpu")
     ra = b.register(3)
     rb = b.register(3)
     x, y = b.split_first_qubit(ra)[::-1]
@@ -80,7 +80,7 @@ def test_golden_inverse_roundtrip():
 @pytest.mark.parametrize("outcome", [0, 1])
 @pytest.mark.parametrize("prec", ["f64", "f32"])
 def test_golden_cswap(outcome, prec):
-    b = LocalBuilder(dtype=prec)
+    b = LocalBuilder(dtype=prec, device="cpu")
     q = b.qubit()
     ra = b.register(3)
     rb = b.register(3)
@@ -156,7 +156,7 @@ def _reference_state(name, prec):
      ("qft14", "f32"), ("grover14", "f32")],
 )
 def test_circuit_matches_reference(name, prec, kernel_ok):
-    b = LocalBuilder(dtype=prec, kernel_ok=kernel_ok)
+    b = LocalBuilder(dtype=prec, device="cpu", kernel_ok=kernel_ok)
     init = CIRCUITS[name](b, "port")
     cc = b.compile()
     counts = cc.sweep_counts()
@@ -171,7 +171,7 @@ def test_circuit_matches_reference(name, prec, kernel_ok):
 
 def test_qft_is_the_dft():
     n = 6
-    b = LocalBuilder(dtype="f64")
+    b = LocalBuilder(dtype="f64", device="cpu")
     r = b.register(n)
     qfft(b, r)
     from rustqip_tpu_torch.builder.traits import make_circuit_matrix
@@ -214,7 +214,7 @@ def test_forced_measurements_match_reference(prec):
     rstate, rmeas = rb.calculate_state(
         seed=0, conditions={r1: 1, r2: RMC(2, 0.3)}
     )
-    pb = LocalBuilder(dtype=prec)
+    pb = LocalBuilder(dtype=prec, device="cpu")
     p1, p2, p3 = _measured_circuit(pb, "port")
     pstate, pmeas = pb.calculate_state(
         seed=0, conditions={p1: 1, p2: MeasuredCondition(2, 0.3)}
@@ -232,7 +232,7 @@ def test_forced_measurements_match_reference(prec):
 
 def test_grover_search_finds_marked():
     n, marked = 6, 0b101101
-    b = LocalBuilder(dtype="f64")
+    b = LocalBuilder(dtype="f64", device="cpu")
     _, handle = grover_search(b, n, marked)
     _, meas = b.calculate_state(seed=1)
     probs = meas.get_stochastic_measurement(handle)
@@ -243,7 +243,7 @@ def test_grover_search_finds_marked():
 
 def test_sampling_is_reproducible_from_seed():
     def run(seed):
-        b = LocalBuilder(dtype="f32")
+        b = LocalBuilder(dtype="f32", device="cpu")
         q = b.h(b.register(4))
         q, m = b.measure(q)
         _, meas = b.calculate_state(seed=seed)
@@ -255,7 +255,7 @@ def test_sampling_is_reproducible_from_seed():
 
 
 def test_unported_surfaces_raise():
-    b = LocalBuilder()
+    b = LocalBuilder(device="cpu")
     r = b.register(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.apply_fn_matrix(r, lambda x: (x, 1))
@@ -267,3 +267,15 @@ def test_unported_surfaces_raise():
         qfft_inverse(b, r)
     with pytest.raises(CircuitError):
         b.calculate_state(conditions={0: 1})
+
+
+def test_entry_points_default_to_the_card():
+    """LocalBuilder, CompiledCircuit and compile_pipeline target CUDA unless
+    the caller passes device="cpu" (nothing is allocated here)."""
+    import inspect
+
+    from rustqip_tpu_torch.engine.compile import CompiledCircuit, compile_pipeline
+
+    assert LocalBuilder().device.type == "cuda"
+    for fn in (CompiledCircuit.__init__, compile_pipeline):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -10,17 +10,19 @@ import pytest
 import torch
 
 from rustqip_tpu_torch.engine import window_kernel as wk
-from rustqip_tpu_torch.engine.admission import HopperSmemAdmission
+from rustqip_tpu_torch.engine.admission import HopperSmemAdmission, window_seg_sizes
 from rustqip_tpu_torch.engine.parity_windows import (
     build_sequences,
     lowr_sequence,
     rand_u,
+    step_windows,
 )
 from rustqip_tpu_torch.engine.real_apply import compile_sweeps
 from rustqip_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 
 TOL = 1e-6
 PARITY = build_sequences(20) + [lowr_sequence(20)]
+STEP_WINDOWS = step_windows(20)
 
 pytestmark = pytest.mark.gpu
 
@@ -55,6 +57,25 @@ def test_kernel_matches_plain_on_parity_windows(cuda, idx):
         assert (a[0] - b[0]).abs().max().item() <= TOL
         assert (a[1] - b[1]).abs().max().item() <= TOL
     assert wk.LAUNCHES["window_sweep"] == before + len(sweeps)
+
+
+@pytest.mark.parametrize("idx", range(len(STEP_WINDOWS)), ids=[w[0] for w in STEP_WINDOWS])
+def test_kernel_matches_plain_on_step_windows(cuda, idx):
+    """Tensor-core matrix steps (3xTF32) and separable diag against the
+    plain version, n=20, 1e-6 max abs."""
+    name, hq, ksteps, kinds = STEP_WINDOWS[idx]
+    n = 20
+    seg = window_seg_sizes(n, hq)
+    prog = wk.encode_window(n, seg, ksteps)
+    assert set(prog.kinds) == kinds
+    x = planes_from_numpy(_state(n, 1), device=cuda)
+    a = (x[0].clone(), x[1].clone())
+    b = (x[0].clone(), x[1].clone())
+    wk.window_sweep(n, *a, seg, ksteps, prog=prog)
+    wk.window_sweep_reference(n, *b, seg, ksteps, prog=prog)
+    torch.cuda.synchronize()
+    assert (a[0] - b[0]).abs().max().item() <= TOL
+    assert (a[1] - b[1]).abs().max().item() <= TOL
 
 
 def test_circuit_on_cuda_matches_cpu(cuda):

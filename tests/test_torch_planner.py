@@ -172,7 +172,7 @@ def _ref_circuit(build, n):
 
     rb = RB(dtype="f32")
     build(rb, "ref")
-    pb = PB(dtype="f32", kernel_ok=True)
+    pb = PB(dtype="f32", device="cpu", kernel_ok=True)
     build(pb, "port")
     return rb.compile(), pb.compile()
 

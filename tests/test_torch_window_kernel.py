@@ -27,6 +27,7 @@ from rustqip_tpu_torch.engine.parity_windows import (  # noqa: E402
     build_sequences,
     lowr_sequence,
     rand_u,
+    step_windows,
 )
 from rustqip_tpu_torch.engine.real_apply import (  # noqa: E402
     apply_ops_ri,
@@ -106,6 +107,124 @@ def test_plain_window_matches_reference_interpret(kind):
     v32 = v.astype(np.complex64).astype(np.complex128)
     kept = want == v32
     assert np.array_equal(got[kept], v32[kept])
+
+
+STEP_WINDOWS = {w[0]: w for w in step_windows(N)}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_WINDOWS))
+def test_step_window_matches_reference_interpret(name):
+    """The matrix-step and diag shapes the kernel treats specially: the
+    plain version of the encoded program against the JAX package's kernel
+    in interpret mode (f32, 1e-6 max abs on a normalized state)."""
+    _, hq, ksteps, kinds = STEP_WINDOWS[name]
+    n = N
+    seg = window_seg_sizes(n, hq)
+    v = _state(n, 5)
+    R = 1 << (n - 7)
+    er, ei = ref_pk.window_sweep(
+        n,
+        jnp.asarray(v.real.astype(np.float32).reshape(R, 128)),
+        jnp.asarray(v.imag.astype(np.float32).reshape(R, 128)),
+        seg, ksteps, interpret=True,
+    )
+    want = np.asarray(er, np.float64).reshape(-1) + 1j * np.asarray(
+        ei, np.float64
+    ).reshape(-1)
+    prog = wk.encode_window(n, seg, ksteps)
+    assert set(prog.kinds) == kinds
+    pr, pi = planes_from_numpy(v)
+    wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
+    assert np.abs(planes_to_numpy(pr, pi) - want).max() <= TOL
+
+
+def _diag_entries(prog):
+    """Per-strip diag entries of a one-diag-step program."""
+    rec = prog.iprog[:8]
+    assert wk.KINDS[rec[0]] == "diag"
+    ns = 1 << prog.h
+    out = {}
+    for i in range(ns):
+        if rec[1] >> i & 1:
+            io, fo, nr, G, mode = (int(x) for x in prog.iprog[rec[2] + 5 * i : rec[2] + 5 * i + 5])
+            out[i] = (io, fo, nr, G, mode)
+    return out
+
+
+def test_diag_encoding_is_separable():
+    """A diag entry holds the lane monomials as one precomputed 128-entry
+    complex lane factor and the mixed monomials as one row mask + one lane
+    vector per row support (a QFT fan is one group); many groups switch to
+    angles."""
+    n = N
+    lane = [n - 7 + k for k in range(7)]
+    _, hq, ksteps, _ = STEP_WINDOWS["diag_row_lane_mixed"]
+    prog = wk.encode_window(n, window_seg_sizes(n, hq), ksteps)
+    ents = _diag_entries(prog)
+    cols = np.arange(128)
+
+    def bits(qs):
+        m = sum(1 << (n - 1 - q) for q in qs)
+        return (cols & m) == m
+
+    # strip 0b10 of window (1, 4): qubit 1 = 1, qubit 4 = 0
+    io, fo, nr, G, mode = ents[0b10]
+    assert mode == 0 and G == 2
+    row_support = [int(x) for x in prog.iprog[io + nr : io + nr + G]]
+    n_m = n - 7
+    assert row_support == [1 << (n_m - 1 - 2), (1 << (n_m - 1 - 5)) | (1 << (n_m - 1 - 6))]
+    lane_ang = 0.2 * bits([lane[1]]) - 0.5 * bits([lane[5], lane[6]]) - 0.4 * bits([lane[4], lane[5]])
+    lane_part = prog.fprog[fo + 1 + nr : fo + 1 + nr + 256]
+    np.testing.assert_allclose(lane_part[:128], np.cos(lane_ang), atol=1e-7)
+    np.testing.assert_allclose(lane_part[128:], np.sin(lane_ang), atol=1e-7)
+    g0 = prog.fprog[fo + 1 + nr + 256 : fo + 1 + nr + 512]
+    g0_ang = 0.9 * bits([lane[2]]) + 0.35 * bits([lane[3], lane[4]])
+    np.testing.assert_allclose(g0[:128], np.cos(g0_ang), atol=1e-7)
+    fan = STEP_WINDOWS["diag_cp_fan"]
+    ents = _diag_entries(wk.encode_window(n, window_seg_sizes(n, fan[1]), fan[2]))
+    assert {e[3] for e in ents.values()} == {1}
+    many = STEP_WINDOWS["diag_many_groups"]
+    ents = _diag_entries(wk.encode_window(n, window_seg_sizes(n, many[1]), many[2]))
+    assert all(e[3] == 6 and e[4] == 1 for e in ents.values())
+
+
+@pytest.mark.parametrize("name", ["diag_row_lane_mixed", "diag_cp_fan"])
+def test_diag_factor_and_angle_modes_agree(name, monkeypatch):
+    """The same diag through the factor encoding and, with the group limit
+    at 0, through the angle encoding (1e-6 max abs)."""
+    _, hq, ksteps, _ = STEP_WINDOWS[name]
+    n = N
+    seg = window_seg_sizes(n, hq)
+    v = _state(n, 6)
+    a = planes_from_numpy(v)
+    wk.window_sweep_reference(n, *a, seg, ksteps)
+    monkeypatch.setattr(wk, "DIAG_MASK_MAX", 0)
+    prog = wk.encode_window(n, seg, ksteps)
+    assert all(e[4] == 1 for e in _diag_entries(prog).values())
+    b = planes_from_numpy(v)
+    wk.window_sweep_reference(n, *b, seg, ksteps, prog=prog)
+    assert np.abs(planes_to_numpy(*a) - planes_to_numpy(*b)).max() <= TOL
+
+
+def test_matrix_operands_reach_the_kernel_as_b():
+    """The kernel reads each operand as B (row c = output lane c), complex
+    ones as (re, im, re + im) in float32; the rmix record lists the step's
+    distinct operands once each, with a complex flag."""
+    B = rand_u(7, 12)
+    prog = wk.encode_window(N, (1 << (N - 7),), [("low", B)])
+    np.testing.assert_array_equal(prog.mats[0], B.real.astype(np.float32))
+    np.testing.assert_array_equal(prog.mats[1], B.imag.astype(np.float32))
+    np.testing.assert_array_equal(
+        prog.mats[2], B.real.astype(np.float32) + B.imag.astype(np.float32)
+    )
+    _, hq, ksteps, _ = STEP_WINDOWS["rmix_complex"]
+    prog = wk.encode_window(N, window_seg_sizes(N, hq), ksteps)
+    rec = prog.iprog[:8]
+    mlist = prog.iprog[rec[3] : rec[3] + 2 * rec[4]].reshape(-1, 2).tolist()
+    assert mlist == [[0, 1], [3, 0], [4, 1]] and rec[5] == 1
+    # two staged chunks of 16 k x 128 lanes: (re, im, re + im) x (hi, lo)
+    assert prog.aux_bytes == 2 * 6 * 128 * 16 * 4
+    assert prog.smem_bytes <= 232448
 
 
 PARITY = build_sequences(20) + [lowr_sequence(20)]
