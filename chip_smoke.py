@@ -4,22 +4,29 @@
     python3 chip_smoke.py
 
 Drives ``rustqip_tpu_torch`` (never JAX or ``rustqip_tpu``) from the root of
-a checkout: builds the Hopper window kernel from
-``rustqip_tpu_torch/csrc/window_sweep.cu``, holds it against its plain
-PyTorch version on the parity windows, then runs the main path —
-``LocalBuilder`` -> compile -> window-kernel sweeps -> measurement — at
-n = 28 qubits in float32 (2 GiB of state) and checks the results against
-closed forms and against the plain torch paths on the same card.
+a checkout: builds the three Hopper kernels from
+``rustqip_tpu_torch/csrc/`` (``window_sweep.cu``, ``row_swap.cu``,
+``plane_copy.cu``; one nvcc each, all started together), holds each against
+its plain PyTorch version (the window kernel on the parity windows, the
+row swap on five pair sets, exactly), then runs the main path --
+``LocalBuilder`` -> compile -> sweeps (window kernel, row-swap pass) ->
+measurement -- at n = 28 qubits in float32 (2 GiB of state) and checks the
+results against closed forms and against the plain torch paths on the same
+card: CSWAP, QFT-28, Grover-28 (both forms), bench.py's arms, a controlled
+wide register swap, QPE-28 (m = 24, k = 4), Shor-28 (order of 2 mod 437,
+t = 19) and a 28-qubit ripple adder.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
-(``window_breakdown``) and one window per redesigned step kind alone
-(``step_breakdown``: the tensor-core matrix steps and the separable diag),
-each beside its bound (the larger of the bytes it must move at 3.35 TB/s
-and its 3xTF32 tensor-core flops at 495 TFLOP/s) and, for the lone matrix
-steps, the one ``torch.matmul`` that computes the same function.
+(``window_breakdown``), one window per redesigned step kind alone
+(``step_breakdown``), the swap pass of QFT-28, QPE-28 and Shor-28 by part
+(``swap_breakdown``), every sweep of QPE-28 and Shor-28
+(``circuit_breakdown``) and the copy floor (``copy_floor``), each beside its
+bound: the larger of the bytes it must move at 3.35 TB/s and its 3xTF32
+tensor-core flops at 495 TFLOP/s, and, where there is one, the one PyTorch
+call that computes the same function.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
-non-zero. The second-to-last lines are the ``kernels`` summary; the last
+non-zero. The second-to-last line is the ``kernels`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -50,11 +57,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of ``fn()`` by CUDA events (one warm-up)."""
+def cuda_ms(fn, reps: int = REPS, warm: bool = True) -> float:
+    """Median milliseconds of ``fn()`` by CUDA events (one warm-up unless
+    ``warm`` is false)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -102,6 +111,23 @@ def window_bound(prog, n: int):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def kernel_modules():
+    """{kernel name: the module whose wrapper counts its launches}."""
+    from rustqip_tpu_torch.engine import copy_probe, row_swap
+    from rustqip_tpu_torch.engine import window_kernel as wk
+
+    return {"window_sweep": wk, "row_swap": row_swap, "plane_copy": copy_probe}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.reset_launch_counts()
+
+
+def read_launches() -> dict:
+    return {name: mod.LAUNCHES[name] for name, mod in kernel_modules().items()}
+
+
 def phase_env():
     import torch
 
@@ -110,9 +136,9 @@ def phase_env():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine import cuda_build
 
-    nvcc = wk._nvcc()
+    nvcc = cuda_build.nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
     try:
         import triton  # noqa: F401
@@ -133,15 +159,20 @@ def phase_env():
 
 
 def phase_build():
-    from rustqip_tpu_torch.engine import window_kernel as wk
+    """Build the three kernels from the checkout's sources (one nvcc each,
+    started together) and load them."""
+    from rustqip_tpu_torch.engine import cuda_build
 
-    if wk.BUILD_DIR.exists():
-        shutil.rmtree(wk.BUILD_DIR)
+    if cuda_build.BUILD_DIR.exists():
+        shutil.rmtree(cuda_build.BUILD_DIR)
     t0 = time.perf_counter()
-    so = wk.build()
-    wk._lib()
+    names = list(kernel_modules())
+    per = cuda_build.build(*names)
+    for mod in kernel_modules().values():
+        mod._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(so.relative_to(ROOT))})
+          "nvcc_seconds": per,
+          "libraries": [str(cuda_build.library_path(k).relative_to(ROOT)) for k in names]})
 
 
 def seeded_state(n: int, seed: int, device):
@@ -216,41 +247,84 @@ def phase_parity():
     return worst
 
 
+def rows_moved(n: int, pairs) -> int:
+    """Rows a swap pass over ``pairs`` must move: those whose index differs
+    in the two bits of some pair, R - R / 2^k for k disjoint pairs."""
+    R = 1 << (n - 7)
+    return R - (R >> len(pairs))
+
+
+def phase_swap_parity():
+    """The row-swap kernel against its plain version at n = 20 on the pair
+    sets of ``row_swap.parity_pair_sets`` in float32, and one float64
+    case: a permutation computes nothing, so they must be equal."""
+    import torch
+
+    from rustqip_tpu_torch.engine import row_swap
+
+    n = N_PARITY
+    sets = [(name, pairs, torch.float32) for name, pairs in row_swap.parity_pair_sets(n)]
+    sets.append((sets[1][0] + "_f64", sets[1][1], torch.float64))
+    rows = []
+    for name, pairs, dtype in sets:
+        xr, xi = (x.to(dtype) for x in seeded_state(n, 3, "cuda"))
+        want = row_swap.row_swap_reference(n, pairs, xr, xi)
+        got = row_swap.row_swap(n, pairs, xr.clone(), xi.clone())
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"row_swap {name}: kernel differs from the plain version")
+        rows.append({"set": name, "pairs": pairs, "dtype": str(dtype).split(".")[-1],
+                     "rows_moved": rows_moved(n, pairs), "equal": True})
+    emit({"phase": "swap_kernel_vs_plain", "n": n, "sets": rows})
+    return 0.0
+
+
 def _builder(kernel: bool):
     from rustqip_tpu_torch.prelude import LocalBuilder
 
     return LocalBuilder(dtype="f32", device="cuda", kernel_ok=None if kernel else False)
 
 
-def run_circuit(name, build, check):
-    """Build the same circuit twice (kernel path, plain path), run the
-    kernel path once with the launch counters zeroed just before and read
-    just after, check both results, and time both paths."""
+def builder_circuit(build):
+    """``make(kernel)`` for a circuit built on a LocalBuilder by ``build``."""
+    def make(kernel):
+        b = _builder(kernel)
+        handles = build(b)
+        return b.compile(), b.initial_index(handles.get("init", ())), handles
+
+    return make
+
+
+def run_circuit(name, make, check):
+    """Compile the same circuit twice (kernel path, plain path), run the
+    kernel path once with every launch counter zeroed just before and read
+    just after, check both results, and time both paths. ``make(kernel)``
+    returns ``(compiled circuit, initial index, handles)``."""
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
 
     out = {}
     for label, kernel in (("kernel", True), ("plain", False)):
-        b = _builder(kernel)
-        handles = build(b)
-        cc = b.compile()
+        cc, init, handles = make(kernel)
+        handles = dict(handles, path=label)
         gen = torch.Generator()
         gen.manual_seed(7)
         torch.cuda.synchronize()
         if kernel:
-            wk.reset_launch_counts()
-        re, im, res = cc.run(b.initial_index(handles.get("init", ())), generator=gen)
+            reset_launches()
+        re, im, res = cc.run(init, generator=gen)
         torch.cuda.synchronize()
-        launches = wk.LAUNCHES["window_sweep"] if kernel else 0
         if kernel:
+            launches = read_launches()
             kinds = dict(wk.KIND_LAUNCHES)
         check(re, im, res, handles)
-        ms = cuda_ms(lambda: cc.run(b.initial_index(handles.get("init", ())),
-                                    generator=gen))
-        out[label] = (re, im, cc, launches, ms)
+        # the plain path was just run once: time one more run of it
+        ms = cuda_ms(lambda: cc.run(init, generator=gen),
+                     **({} if kernel else {"reps": 1, "warm": False}))
+        out[label] = (re, im, cc, ms)
         del re, im
-    (kr, ki, kcc, launches, kms), (pr, pi, pcc, _, pms) = out["kernel"], out["plain"]
+    (kr, ki, kcc, kms), (pr, pi, pcc, pms) = out["kernel"], out["plain"]
     diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
     if diff > E2E_TOL:
         raise AssertionError(f"{name}: kernel path vs plain path max|diff| {diff}")
@@ -266,17 +340,42 @@ def run_circuit(name, build, check):
     return row, launches, kcc
 
 
+def _basis_index(n, regs_values):
+    """State index of a basis state from (register, value) pairs (value bit
+    j on the register's j-th qubit)."""
+    idx = 0
+    for r, v in regs_values:
+        for j, q in enumerate(r.indices):
+            idx |= ((v >> j) & 1) << (n - 1 - q)
+    return idx
+
+
 def phase_main():
     import numpy as np
     import torch
 
-    from rustqip_tpu_torch.algos import grover_iteration, qfft
-
     from collections import Counter
+
+    from rustqip_tpu_torch.algos import (
+        add,
+        grover_iteration,
+        phase_estimate,
+        qfft,
+        shor_period_circuit,
+    )
+    from rustqip_tpu_torch.algos.shor import period_from_distribution
+    from rustqip_tpu_torch.engine.compile import UnitaryEntry, compile_pipeline
+    from rustqip_tpu_torch.ops import gates
+    from rustqip_tpu_torch.ops.matrix_ops import (
+        make_control_op,
+        make_matrix_op,
+        make_swap_op,
+    )
+    from rustqip_tpu_torch.utils.bits import flip_bits
 
     n = N_MAIN
     rows = []
-    total_launches = 0
+    total = Counter()
     kind_launches = Counter()
 
     # (a) README CSWAP (examples/simple.py) on a 28-qubit state.
@@ -333,19 +432,113 @@ def phase_main():
 
         return build, check
 
+    # (d) a swap of two 6-qubit registers under a control: a ControlOp wider
+    # than DENSE_CAP, whose inner row swap runs on plane copies.
+    va, vb = 0b101101, 0b000011
+    wide_idx = [sum(((v >> (5 - j)) & 1) << (n - 1 - q) for j, q in enumerate(qs))
+                for v, qs in ((va, range(1, 7)), (vb, range(7, 13)))]
+    wide_swapped = [sum(((v >> (5 - j)) & 1) << (n - 1 - q) for j, q in enumerate(qs))
+                    for v, qs in ((vb, range(1, 7)), (va, range(7, 13)))]
+
+    def wide_swap(kernel):
+        entries = [
+            UnitaryEntry(make_matrix_op([0], gates.H.reshape(-1))),
+            UnitaryEntry(make_control_op([0], make_swap_op(range(1, 7), range(7, 13)))),
+        ]
+        cc = compile_pipeline(n, entries, np.complex64, device="cuda",
+                              kernel_ok=None if kernel else False)
+        return cc, sum(wide_idx), {}
+
+    def check_wide_swap(re, im, res, h):
+        flat = re.reshape(-1)
+        for i in (sum(wide_idx), (1 << (n - 1)) | sum(wide_swapped)):
+            if abs(flat[i].item() - 0.5 ** 0.5) > E2E_TOL:
+                raise AssertionError(f"controlled wide swap: amplitude {flat[i].item()} at {i}")
+        if abs((re ** 2).sum().item() - 1) > E2E_TOL or im.abs().max().item() > E2E_TOL:
+            raise AssertionError("controlled wide swap: state not the two expected basis states")
+
+    # (e) QPE-28: m = 24 phase qubits, k = 4 target qubits prepared in the
+    # eigenvector |1111> of a diagonal U with dyadic eigenphases P / 2^24.
+    m_ph = 24
+    P = np.random.default_rng(24).integers(0, 1 << m_ph, size=16)
+    U = np.diag(np.exp(2j * np.pi * P / (1 << m_ph)))
+
+    def qpe(b):
+        phase_estimate(b, U, m_ph, prepare=lambda bb, t: bb.x(t))
+        return {}
+
+    def check_qpe(re, im, res, h):
+        outcome, p = res[0]
+        got = flip_bits(m_ph, outcome)
+        if got != int(P[15]) or p < 1 - 1e-5:
+            raise AssertionError(f"QPE-28: read {got} / 2^24 with p {p}, want {P[15]}")
+        emit({"phase": "qpe28_reading", "path": h["path"], "phase_integer": got,
+              "want": int(P[15]), "probability": p})
+
+    # (f) Shor-28: order of 2 mod 437 = lcm(18, 11) = 198, t = 19.
+    def shor(b):
+        shor_period_circuit(b, 2, 437, t=19)
+        return {}
+
+    def check_shor(re, im, res, h):
+        probs = res[0].double().cpu().numpy()
+        r = period_from_distribution(probs, 2, 437, 19)
+        if r != 198 or abs(probs.sum() - 1) > E2E_TOL:
+            raise AssertionError(f"Shor-28: order {r} (sum {probs.sum()}), want 198")
+        top = np.argsort(probs)[::-1][:4]
+        emit({"phase": "shor28_reading", "path": h["path"], "order": r,
+              "top_outcomes": [[int(m), float(probs[m])] for m in top]})
+
+    # (g) Adder-28: rb += ra with carry scratch rc: rc[9], ra[9], rb[10].
+    def adder(hadamard):
+        def build(b):
+            rc, ra, rb = b.register(9), b.register(9), b.register(10)
+            if hadamard:
+                ra = b.h(ra)
+            out = add(b, rc, ra, rb)
+            init = [(rb, 301)] if hadamard else [(rc, 0), (ra, 389), (rb, 301)]
+            return {"init": init, "out": out}
+
+        def check(re, im, res, h):
+            rc, ra, rb = h["out"]
+            if hadamard:
+                want = [_basis_index(n, [(ra, a), (rb, a + 301)]) for a in range(512)]
+                amps = re.reshape(-1)[torch.as_tensor(want, device=re.device)]
+                if (amps - 512 ** -0.5).abs().max().item() > E2E_TOL \
+                        or abs((amps ** 2).sum().item() - 1) > E2E_TOL:
+                    raise AssertionError("Adder-28 (H on ra): a branch misses a + 301")
+                return
+            i = int(((re ** 2) + (im ** 2)).reshape(-1).argmax().item())
+            if i != _basis_index(n, [(ra, 389), (rb, 690)]) \
+                    or abs(re.reshape(-1)[i].item() - 1) > E2E_TOL:
+                raise AssertionError(f"Adder-28: 389 + 301 read at index {i}")
+
+        return build, check
+
     circuits = [
-        ("cswap_readme", cswap, check_cswap),
-        ("qft28", qft28, check_qft),
-        ("grover28_iteration_gate", *grover(False)),
-        ("grover28_iteration_native", *grover(True)),
+        ("cswap_readme", builder_circuit(cswap), check_cswap),
+        ("qft28", builder_circuit(qft28), check_qft),
+        ("grover28_iteration_gate", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(grover(False))),
+        ("grover28_iteration_native", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(grover(True))),
+        ("controlled_wide_swap28", wide_swap, check_wide_swap),
+        ("qpe28", builder_circuit(qpe), check_qpe),
+        ("shor28", builder_circuit(shor), check_shor),
+        ("adder28_basis", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(adder(False))),
+        ("adder28_hadamard", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(adder(True))),
     ]
+    must_launch = {"row_swap": {"qft28", "qpe28", "shor28", "controlled_wide_swap28"},
+                   "plane_copy": {"controlled_wide_swap28"}}
     ccs = {}
-    for name, build, check in circuits:
-        row, launches, cc = run_circuit(name, build, check)
-        if name != "cswap_readme" and launches <= 0:
-            raise AssertionError(f"{name}: the main path launched no kernel")
+    for name, make, check in circuits:
+        row, launches, cc = run_circuit(name, make, check)
+        if name not in ("cswap_readme", "controlled_wide_swap28") \
+                and launches["window_sweep"] <= 0:
+            raise AssertionError(f"{name}: the main path launched no window kernel")
+        for kernel, names in must_launch.items():
+            if name in names and launches[kernel] <= 0:
+                raise AssertionError(f"{name}: the main path launched no {kernel} kernel")
         ccs[name] = cc
-        total_launches += launches
+        total.update(launches)
         kind_launches.update(row["kind_launches"])
         rows.append(row)
         emit(row)
@@ -357,12 +550,10 @@ def phase_main():
           "relative_to_uniform_amplitude": form_diff / a0})
     del grover_states, gr, gi, nr, ni
 
-    # (d) bench.py's fused and unfused arms, kernel vs plain paths.
+    # (h) bench.py's fused and unfused arms, kernel vs plain paths.
     from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.admission import HOPPER
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps, run_sweeps
-    from rustqip_tpu_torch.ops import gates
-    from rustqip_tpu_torch.ops.matrix_ops import make_matrix_op
 
     fused = [make_matrix_op([(i % 2) * (n - 1)], gates.H.reshape(-1)) for i in range(30)]
     ccx = np.eye(8, dtype=np.complex128)
@@ -379,13 +570,13 @@ def phase_main():
         ps = compile_sweeps(n, ops, False, HOPPER, "cuda")
         kr, ki = x0[0].clone(), x0[1].clone()
         torch.cuda.synchronize()
-        wk.reset_launch_counts()
+        reset_launches()
         kr, ki = run_sweeps(n, ks, kr, ki)
         torch.cuda.synchronize()
-        launches = wk.LAUNCHES["window_sweep"]
-        if launches <= 0:
+        launches = read_launches()
+        if launches["window_sweep"] <= 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
-        total_launches += launches
+        total.update(launches)
         kinds = dict(wk.KIND_LAUNCHES)
         kind_launches.update(kinds)
         pr, pi = run_sweeps(n, ps, x0[0].clone(), x0[1].clone())
@@ -408,7 +599,7 @@ def phase_main():
     missing = {"low", "lowr", "rmix", "diag"} - set(kind_launches)
     if missing:
         raise AssertionError(f"main path never launched step kinds {sorted(missing)}")
-    return rows, total_launches, dict(kind_launches), ccs
+    return rows, dict(total), dict(kind_launches), ccs
 
 
 def phase_window_breakdown(ccs):
@@ -559,6 +750,177 @@ def phase_step_breakdown(ccs):
     return worst
 
 
+def _field(n_m, pairs):
+    """(pre, span) when the row pairs reverse one contiguous field of row
+    qubits (any span), else None."""
+    qubits = sorted(q for p in pairs for q in p)
+    lo, hi = qubits[0], qubits[-1]
+    span = hi - lo + 1
+    if {tuple(sorted(p)) for p in pairs} != {(lo + t, hi - t) for t in range(span // 2)}:
+        return None
+    return 1 << lo, span
+
+
+def phase_swap_breakdown(ccs):
+    """The swap pass at the end of QFT-28, QPE-28 and Shor-28, by part, on
+    a seeded random state: the row-swap kernel (ms, bound by bytes), its
+    plain version (``_row_swap_planes``), the one ``reshape -> permute ->
+    contiguous`` that computes the same field reversal (the library call,
+    both planes stacked), the cross-pair part's plain passes, and the whole
+    ``SwapOp`` through ``apply_op_ri``. Kernel and plain are checked equal."""
+    import torch
+
+    from rustqip_tpu_torch.engine import row_swap
+    from rustqip_tpu_torch.engine.apply import _cross_swap_planes, _swap_schedule
+    from rustqip_tpu_torch.engine.real_apply import apply_op_ri
+    from rustqip_tpu_torch.ops.matrix_ops import SwapOp
+
+    n = N_MAIN
+    n_m = n - 7
+    R, C = 1 << n_m, 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    x = torch.randn((2, R, C), generator=g, device="cuda")
+    x /= x.norm()
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name in ("qft28", "qpe28", "shor28"):
+        swaps = [p for seg in ccs[name].sweeps if isinstance(seg, list)
+                 for k, p, _ in seg if k == "op" and isinstance(p, SwapOp)]
+        if len(swaps) != 1:
+            raise AssertionError(f"{name}: {len(swaps)} swap passes, want 1")
+        op = swaps[0]
+        cross, rowp, colp, mixed = _swap_schedule(n, op)
+        kr, ki = row_swap.row_swap(n, rowp, x[0].clone(), x[1].clone())
+        pr, pi = row_swap.row_swap_reference(n, rowp, x[0], x[1])
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr) and torch.equal(ki, pi)):
+            raise AssertionError(f"{name}: row_swap kernel differs from the plain version")
+        del pr, pi
+        field = _field(n_m, rowp)
+        library_ms = None
+        if field is not None and field[1] + 4 <= 25:
+            pre, span = field
+            shape = (2, pre) + (2,) * span + (R // (pre << span), C)
+            perm = (0, 1) + tuple(range(span + 1, 1, -1)) + (span + 2, span + 3)
+            lib = x.reshape(shape).permute(perm).contiguous().reshape(2, R, C)
+            if not (torch.equal(lib[0], kr) and torch.equal(lib[1], ki)):
+                raise AssertionError(f"{name}: the library permute differs from the kernel")
+            del lib
+            library_ms = cuda_ms(lambda: x.reshape(shape).permute(perm).contiguous())
+        ms = cuda_ms(lambda: row_swap.row_swap(n, rowp, kr, ki))
+        plain_ms = cuda_ms(lambda: row_swap.row_swap_reference(n, rowp, x[0], x[1]))
+        moved = 2 * 2 * rows_moved(n, rowp) * C * 4
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        cross_ms = (cuda_ms(lambda: _cross_swap_planes(n, cross, [x[0], x[1]]))
+                    if cross else 0.0)
+        del kr, ki
+        buf = (x[0].clone(), x[1].clone())
+        op_ms = cuda_ms(lambda: apply_op_ri(n, op, *buf))
+        del buf
+        torch.cuda.empty_cache()
+        row = {"phase": "swap_breakdown", "circuit": name, "n": n,
+               "cross_pairs": cross, "row_pairs": rowp, "col_pairs": colp,
+               "dense_pairs": mixed, "row_field": field,
+               "rows_moved": rows_moved(n, rowp), "bytes": moved,
+               "ms": ms, "GB_per_s": moved / ms / 1e6, "bound_ms": bound_ms,
+               "bound_by": "bytes", "bound_share": bound_ms / ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_call": "reshape -> permute -> contiguous on (2, R, 128)",
+               "cross_plain_ms": cross_ms, "swap_op_ms": op_ms}
+        emit(row)
+        for k in totals:
+            totals[k] += row[k] or 0.0
+    return totals
+
+
+def phase_circuit_breakdown(ccs):
+    """Every sweep and measurement of QPE-28 and Shor-28's kernel-path plans
+    alone, on a seeded random state: ms by CUDA events (one warm-up, one
+    timed run) and what the sweep is; for a collapsing measurement also the
+    host time of drawing its outcome (``sample_outcome``, host clock)."""
+    import torch
+
+    from rustqip_tpu_torch.engine.compile import MeasureEntry
+    from rustqip_tpu_torch.engine.real_apply import run_sweeps
+    from rustqip_tpu_torch.ops.measurement_ops import measure_probs_ri, sample_outcome
+
+    n = N_MAIN
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    x = torch.randn((2, 1 << (n - 7), 128), generator=g, device="cuda")
+    x /= x.norm()
+    for name in ("qpe28", "shor28"):
+        rows = []
+        for seg in ccs[name].sweeps:
+            if isinstance(seg, MeasureEntry):
+                ms = cuda_ms(lambda: measure_probs_ri(n, seg.indices, x[0], x[1]), reps=1)
+                row = {"sweep": f"measure {len(seg.indices)} qubits", "ms": ms}
+                if not seg.stochastic:
+                    # the outcome is drawn on the host (host clock)
+                    probs = measure_probs_ri(n, seg.indices, x[0], x[1])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sample_outcome(probs, torch.Generator().manual_seed(0))
+                    row["host_sample_ms"] = (time.perf_counter() - t0) * 1e3
+                rows.append(row)
+                continue
+            for sweep in seg:
+                kind, payload, run = sweep
+                if kind == "kwindow":
+                    what = "kwindow h=%d %s" % (payload[2].h, "+".join(payload[2].kinds))
+                elif kind == "op":
+                    what = "op %s on %d qubits" % (type(payload).__name__, len(run[0].indices))
+                else:
+                    what = "window"
+                ms = cuda_ms(lambda: run_sweeps(n, [sweep], x[0], x[1]), reps=1)
+                rows.append({"sweep": what, "gates": len(run), "ms": ms})
+        emit({"phase": "circuit_breakdown", "circuit": name, "n": n,
+              "ms_sum": sum(r["ms"] for r in rows), "sweeps": rows})
+
+
+def phase_copy_floor():
+    """One read and one write of the n = 28 float32 plane pair: the copy
+    kernel to fresh planes and in place, with 1 and 4 row strips per
+    thread, beside ``Tensor.copy_`` (the plain version, per plane) and one
+    ``copy_`` of both planes stacked (the library call)."""
+    import torch
+
+    from rustqip_tpu_torch.engine import copy_probe
+
+    n = N_MAIN
+    R, C = 1 << (n - 7), 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    x = torch.randn((2, R, C), generator=g, device="cuda")
+    y = torch.empty_like(x)
+    nbytes = 2 * 2 * R * C * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"bytes": nbytes, "bound_ms": bound_ms}
+    for strips in copy_probe.STRIPS:
+        y.zero_()
+        copy_probe.plane_copy(x[0], x[1], out=(y[0], y[1]), strips=strips)
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            raise AssertionError(f"plane_copy strips={strips} differs from its input")
+        fresh = cuda_ms(lambda: copy_probe.plane_copy(x[0], x[1], out=(y[0], y[1]),
+                                                      strips=strips))
+        inplace = cuda_ms(lambda: copy_probe.plane_copy(y[0], y[1], out=(y[0], y[1]),
+                                                        strips=strips))
+        out[f"fresh_strips{strips}_ms"] = fresh
+        out[f"inplace_strips{strips}_ms"] = inplace
+        out[f"fresh_strips{strips}_GB_per_s"] = nbytes / fresh / 1e6
+        out[f"inplace_strips{strips}_GB_per_s"] = nbytes / inplace / 1e6
+    if not torch.equal(x, y):
+        raise AssertionError("plane_copy in place changed the planes")
+    out["plain_ms"] = cuda_ms(lambda: copy_probe.plane_copy_reference(x[0], x[1], out=(y[0], y[1])))
+    out["library_ms"] = cuda_ms(lambda: y.copy_(x))
+    out["library_GB_per_s"] = nbytes / out["library_ms"] / 1e6
+    out["floor_ms"] = min(v for k, v in out.items() if k.endswith("strips1_ms")
+                          or k.endswith("strips4_ms") or k == "library_ms")
+    emit({"phase": "copy_floor", "n": n, **out})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -578,26 +940,61 @@ def main() -> int:
     phase_env()
     phase_build()
     parity_err = phase_parity()
+    swap_err = phase_swap_parity()
     rows, launches, kind_launches, ccs = phase_main()
     kms, pms, qft_err, bound = phase_window_breakdown(ccs)
     step_err = phase_step_breakdown(ccs)
+    swap = phase_swap_breakdown(ccs)
+    phase_circuit_breakdown(ccs)
+    copy = phase_copy_floor()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    emit({"kernels": [{
-        "name": "window_sweep",
-        "route": "cuda",
-        "source": "rustqip_tpu_torch/csrc/window_sweep.cu",
-        "replaces": "rustqip_tpu/engine/pallas_kernels.py:1155",
-        "launches": launches,
-        "kind_launches": kind_launches,
-        "max_abs_err": max(parity_err, qft_err, step_err),
-        "ms": kms,
-        "plain_ms": pms,
-        "bound_ms": sum(bound.values()),
-        "bound_by": max(bound, key=bound.get),
-        # no one PyTorch call computes a window's step chain; the lone
-        # matrix steps' library calls are in the step_breakdown rows
-        "library_ms": None,
-    }]})
+    emit({"kernels": [
+        {
+            "name": "window_sweep",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/window_sweep.cu",
+            "replaces": "rustqip_tpu/engine/pallas_kernels.py:1155",
+            "launches": launches["window_sweep"],
+            "kind_launches": kind_launches,
+            "max_abs_err": max(parity_err, qft_err, step_err),
+            "ms": kms,
+            "plain_ms": pms,
+            "bound_ms": sum(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            # no one PyTorch call computes a window's step chain; the lone
+            # matrix steps' library calls are in the step_breakdown rows
+            "library_ms": None,
+        },
+        {
+            # ms, plain_ms, bound_ms, library_ms: the row parts of the swap
+            # passes of QFT-28, QPE-28 and Shor-28, summed
+            "name": "row_swap",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/row_swap.cu",
+            "replaces": "scripts/field_reversal_probe.py:105",
+            "launches": launches["row_swap"],
+            "max_abs_err": swap_err,
+            "ms": swap["ms"],
+            "plain_ms": swap["plain_ms"],
+            "bound_ms": swap["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": swap["library_ms"],
+        },
+        {
+            # ms: a fresh copy with one strip per thread
+            "name": "plane_copy",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/plane_copy.cu",
+            "replaces": "scripts/copy_bandwidth_probe.py:56",
+            "launches": launches["plane_copy"],
+            "max_abs_err": 0.0,
+            "ms": copy["fresh_strips1_ms"],
+            "plain_ms": copy["plain_ms"],
+            "bound_ms": copy["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": copy["library_ms"],
+        },
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

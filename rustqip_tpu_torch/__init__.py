@@ -2,16 +2,17 @@
 
 A quantum state-vector simulator with the JAX package's circuit surface,
 running on (re, im) float planes in PyTorch, with the JAX package's Pallas
-strip-window kernel rewritten by hand in CUDA C++ for Hopper
-(``csrc/window_sweep.cu``). The JAX package stays the reference the port is
-held against; this package imports neither it nor JAX.
+kernels rewritten by hand in CUDA C++ for Hopper (``csrc/``: the
+strip-window kernel, the row-swap pass, the plane copy). The JAX package
+stays the reference the port is held against; this package imports neither
+it nor JAX.
 
 Layer map (the JAX package's, path for path):
-  engine/    L0  window kernel + wrapper, planner, plain torch passes, compile
+  engine/    L0  kernels + wrappers, planner, plain torch passes, compile
   ops/       L1  op IR + constructors, measurement
-  builder/   L2  LocalBuilder, registers, conditioning
-  dsl/       L3  negate_bitmask (the rest waits)
-  algos/     L4  qfft, grover
+  builder/   L2  LocalBuilder, registers, conditioning, inverter
+  dsl/       L3  program, invertible, ops
+  algos/     L4  qfft, arithmetic, grover, phase estimation, shor
   interop.py     ops and states to and from the JAX package (duck-typed)
 """
 

@@ -45,7 +45,8 @@ def qfft(b, r):
 
 
 def qfft_inverse(b, r):
-    """The inverse QFT needs the shadow-builder inverter, not ported yet."""
-    raise NotImplementedError(
-        "qfft_inverse needs builder/inverter.py: ROADMAP port queue item P2"
-    )
+    """Apply the inverse QFT (shadow-builder inversion of ``qfft``)."""
+    from rustqip_tpu_torch.builder.inverter import inverter
+
+    (r,) = inverter(b, [r], lambda bb, rr: [qfft(bb, rr)])
+    return r

@@ -7,6 +7,7 @@ from rustqip_tpu_torch.builder.builder import (
     StochasticMeasurementHandle,
 )
 from rustqip_tpu_torch.builder.conditioning import Conditioned
+from rustqip_tpu_torch.builder.inverter import inverter, inverter_args
 from rustqip_tpu_torch.builder.registers import (
     Register,
     SplitManyResult,
@@ -23,5 +24,7 @@ __all__ = [
     "Measurements",
     "MeasurementHandle",
     "StochasticMeasurementHandle",
+    "inverter",
+    "inverter_args",
     "make_circuit_matrix",
 ]

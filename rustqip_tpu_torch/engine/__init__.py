@@ -1,4 +1,4 @@
-"""Execution engine (L0): plans, the window kernel, plain torch passes.
+"""Execution engine (L0): plans, the Hopper kernels, plain torch passes.
 
 Float32 matrix products here must run in full float32 (the TPU analog is
 ``engine/apply.py``'s ``MATMUL_PRECISION = HIGHEST``): TF32 keeps about

@@ -456,11 +456,19 @@ def _swap_schedule(n: int, op):
     return cross, rowp, colp, mixed
 
 
+#: Most axes one reshape of a CUDA tensor may have (torch's limit).
+MAX_RESHAPE_RANK = 25
+
+
 def _reflection_plan(n: int, indices: Tuple[int, ...]):
     """Plan for one reflection pass on the (R, C) view: the optional
-    (C, C) 0/1 lane-sum matrix and the row-axis runs reshape (sum over
-    the op's row-qubit bits as a keepdim reduction over contiguous bit
-    runs; rank = #runs + 1)."""
+    (C, C) 0/1 lane-sum matrix and the row-axis runs reshapes (sum over
+    the op's row-qubit bits as keepdim reductions over contiguous bit
+    runs). One reshape exposes every run (rank = #runs + 1) when that fits
+    ``MAX_RESHAPE_RANK``; otherwise the member runs are summed in stages,
+    each stage's reshape exposing a group of them with the bits between
+    merged, so no reshape passes the limit. Returns ``(B, stages)``, each
+    stage ``(shape, axes)``."""
     m, _R, C = _geometry(n)
     n_m = n - m
     col_q = [q for q in indices if q >= n_m]
@@ -475,29 +483,55 @@ def _reflection_plan(n: int, indices: Tuple[int, ...]):
         B = ((cols[:, None] & keep) == (cols[None, :] & keep)).astype(
             np.float64
         )
-    shape = axes = None
-    if row_q:
-        runs: List[List] = []  # [bit-run length, in-op?]
-        for pos in range(n_m):
-            member = pos in row_q
-            if runs and runs[-1][1] == member:
-                runs[-1][0] += 1
+    if not row_q:
+        return B, ()
+    runs: List[List] = []  # [bit-run length, in-op?]
+    for pos in range(n_m):
+        member = pos in row_q
+        if runs and runs[-1][1] == member:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, member])
+    members = [i for i, (_, mem) in enumerate(runs) if mem]
+    if len(runs) + 1 <= MAX_RESHAPE_RANK:
+        groups = [members]
+    else:
+        # a group of g runs takes at most 2g + 2 axes
+        g = (MAX_RESHAPE_RANK - 2) // 2
+        groups = [members[i : i + g] for i in range(0, len(members), g)]
+    stages = []
+    for group in groups:
+        shape: List[int] = []
+        axes: List[int] = []
+        merged = 1
+        for i, (L, _) in enumerate(runs):
+            if i in group:
+                if merged > 1:
+                    shape.append(merged)
+                    merged = 1
+                axes.append(len(shape))
+                shape.append(1 << L)
             else:
-                runs.append([1, member])
-        shape = tuple(1 << L for L, _ in runs) + (C,)
-        axes = tuple(i for i, (_, mem) in enumerate(runs) if mem)
-    return B, shape, axes
+                merged <<= L
+        if merged > 1:
+            shape.append(merged)
+        stages.append((tuple(shape) + (C,), tuple(axes)))
+    return B, tuple(stages)
 
 
 def _apply_reflection_2d(n: int, op, x2d: torch.Tensor) -> torch.Tensor:
     """``psi -> 2*mean_Q(psi) - psi`` blockwise on the (R, C) view; the
     operator is real, so each (re, im) plane takes the same transform."""
-    B, shape, axes = _reflection_plan(n, tuple(op.indices))
+    B, stages = _reflection_plan(n, tuple(op.indices))
     s = x2d
     if B is not None:
         s = s @ _const(B, x2d)
     scale = 2.0 / (1 << op.num_indices)
-    if shape is not None:
+    for shape, axes in stages[:-1]:
+        s = torch.sum(s.reshape(shape), dim=axes, keepdim=True)
+        s = s.expand(shape).reshape(x2d.shape)
+    if stages:
+        shape, axes = stages[-1]
         s = torch.sum(s.reshape(shape), dim=axes, keepdim=True)
         return (scale * s - x2d.reshape(shape)).reshape(x2d.shape)
     return scale * s - x2d

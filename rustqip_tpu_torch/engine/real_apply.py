@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine import window_kernel
+from rustqip_tpu_torch.engine import copy_probe, row_swap, window_kernel
 from rustqip_tpu_torch.engine.admission import (
     TPU_REFERENCE,
     WINDOW_MAX_OPS,
@@ -39,7 +39,6 @@ from rustqip_tpu_torch.engine.apply import (
     _phase_mul_ri,
     _phase_plan,
     _row_segment_shape,
-    _row_swap_planes,
     _swap_schedule,
 )
 from rustqip_tpu_torch.ops.matrix_ops import (
@@ -157,7 +156,11 @@ def _control_ri(n: int, op: ControlOp, re, im) -> Pair:
     if op.num_indices <= DENSE_CAP:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im)
     _, R, C = _geometry(n)
-    in_r, in_i = apply_op_ri(n, op.inner, re, im)
+    # The inner op may update its planes in place (a row swap on CUDA), and
+    # the select below reads the input again: the inner op gets copies.
+    in_r, in_i = apply_op_ri(
+        n, op.inner, *copy_probe.plane_copy(re.contiguous(), im.contiguous())
+    )
     mask = _control_mask_2d(n, op.control_indices, R, C, re.device)
     return (
         torch.where(mask, in_r.reshape(R, C), re.reshape(R, C)),
@@ -191,7 +194,7 @@ def apply_op_ri(n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor) -> Pai
         if cross:
             re, im = _cross_swap_planes(n, cross, [re, im])
         if rowp:
-            re, im = _row_swap_planes(n, rowp, [re, im])
+            re, im = row_swap.row_swap(n, rowp, re, im)
         if colp:
             re, im = _col_swap_planes(n, colp, [re, im])
         for a, b in mixed:

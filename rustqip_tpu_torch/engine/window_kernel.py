@@ -9,7 +9,8 @@ side is ported exactly: ``_specialize_groups``, ``window_strip_activity``,
 The TPU sizing models live in ``engine/admission.py``.
 
 The kernel itself is ``rustqip_tpu_torch/csrc/window_sweep.cu`` (CUDA C++
-for sm_90a, built with nvcc at first use and loaded with ctypes). What
+for sm_90a, built with nvcc at first use and loaded with ctypes by
+``engine/cuda_build.py``). What
 bounds it and what its design does about that is written at the top of
 that file. ``encode_window`` turns a window's kernel steps into the step
 program the kernel interprets; ``CompiledCircuit`` encodes each window once
@@ -28,17 +29,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
-import shutil
-import subprocess
 from collections import Counter
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine.admission import (
     HOPPER_SMEM_BYTES,
     HOPPER_SMEM_HEADER,
@@ -809,51 +807,13 @@ def window_sweep_reference(
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "window_sweep.cu"
-#: Build directory (listed in .gitignore), beside the package's checkout.
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rustqip_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 _LIB = None
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the window kernel builds with the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile csrc/window_sweep.cu into a shared library (once per source
-    version) and return its path. Raises with nvcc's output on failure."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libwindow_sweep_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load("window_sweep")
         fn = lib.rq_window_sweep
         fn.argtypes = (
             [ctypes.c_void_p] * 5

@@ -9,6 +9,8 @@ from rustqip_tpu_torch.builder import (
     SplitManyResult,
     SplitResult,
     StochasticMeasurementHandle,
+    inverter,
+    inverter_args,
     make_circuit_matrix,
 )
 from rustqip_tpu_torch.errors import CircuitError
@@ -24,6 +26,8 @@ __all__ = [
     "Measurements",
     "MeasurementHandle",
     "StochasticMeasurementHandle",
+    "inverter",
+    "inverter_args",
     "make_circuit_matrix",
     "CircuitError",
     "MeasuredCondition",

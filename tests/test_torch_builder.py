@@ -261,10 +261,8 @@ def test_unported_surfaces_raise():
         b.apply_fn_matrix(r, lambda x: (x, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.to_openqasm()
-    from rustqip_tpu_torch.algos import qfft_inverse
-
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qfft_inverse(b, r)
+        b.apply_function_op(r, r, lambda x: x)
     with pytest.raises(CircuitError):
         b.calculate_state(conditions={0: 1})
 

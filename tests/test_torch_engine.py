@@ -93,3 +93,29 @@ def test_apply_op_ri_matches_reference(name, prec):
     assert gr.dtype == td and tuple(gr.shape) == (1 << (N - 7), 128)
     got = planes_to_numpy(gr, gi)
     assert np.abs(got - want).max() <= TOL[prec]
+
+
+@pytest.mark.parametrize("cap", [5, 7, 25])
+@pytest.mark.parametrize("indices", [(0, 2, 4, 6), (0, 2, 4, 6, 9)], ids=["rows", "rows_lane"])
+def test_reflection_rank_chunks_match_one_reshape_and_reference(monkeypatch, cap, indices):
+    """Alternating row qubits give one reshape axis per row-bit run; under a
+    lowered rank cap the runs are summed in stages, each reshape within the
+    cap, and the result equals the one-reshape path and the JAX package's."""
+    from rustqip_tpu_torch.engine import apply as port_apply
+
+    op = R.make_reflection_op(list(indices))
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=1 << N) + 1j * rng.normal(size=1 << N)
+    v /= np.linalg.norm(v)
+    er, ei = ref_apply(N, op, jnp.asarray(v.real), jnp.asarray(v.imag))
+    want = np.asarray(er) + 1j * np.asarray(ei)
+    one = planes_to_numpy(*apply_op_ri(N, op_from_reference(op), *planes_from_numpy(
+        v, dtype=torch.float64)))
+    monkeypatch.setattr(port_apply, "MAX_RESHAPE_RANK", cap)
+    _, stages = port_apply._reflection_plan(N, tuple(indices))
+    assert (len(stages) > 1) == (cap < 8)  # 7 row-bit runs + the lane axis
+    assert all(len(shape) <= cap for shape, _ in stages)
+    got = planes_to_numpy(*apply_op_ri(N, op_from_reference(op), *planes_from_numpy(
+        v, dtype=torch.float64)))
+    assert np.abs(got - one).max() <= 1e-12
+    assert np.abs(got - want).max() <= TOL["f64"]

@@ -1,6 +1,7 @@
-"""The Hopper window kernel on a CUDA device, against its plain torch
-version. Every test here is marked ``gpu`` and skips without a card. The
-file imports no JAX, so it also runs where JAX is not installed:
+"""The port's Hopper kernels (window sweep, row swap, plane copy) on a CUDA
+device, against their plain torch versions. Every test here is marked
+``gpu`` and skips without a card. The file imports no JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import copy_probe, row_swap
 from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import HopperSmemAdmission, window_seg_sizes
 from rustqip_tpu_torch.engine.parity_windows import (
@@ -30,7 +32,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Hopper window kernel")
+        pytest.skip("needs a CUDA device: the port's Hopper kernels")
     return torch.device("cuda")
 
 
@@ -105,6 +107,59 @@ def test_c64_low_matmul_on_cuda_is_functional(cuda):
     assert torch.equal(xr, xr0) and torch.equal(xi, xi0)
     want = (v.reshape(-1, 128) @ B.T).reshape(-1)
     assert np.abs(planes_to_numpy(yr, yi) - want).max() <= TOL
+
+
+SWAP_SETS = row_swap.parity_pair_sets(20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("idx", range(len(SWAP_SETS)), ids=[s[0] for s in SWAP_SETS])
+def test_row_swap_kernel_equals_plain(cuda, idx, dtype):
+    """A permutation computes nothing: the kernel equals the plain version
+    bit for bit, and counts one launch."""
+    _, pairs = SWAP_SETS[idx]
+    n = 20
+    x = planes_from_numpy(_state(n, 2), dtype=dtype, device=cuda)
+    want = row_swap.row_swap_reference(n, pairs, *x)
+    before = row_swap.LAUNCHES["row_swap"]
+    got = row_swap.row_swap(n, pairs, x[0].clone(), x[1].clone())
+    torch.cuda.synchronize()
+    assert row_swap.LAUNCHES["row_swap"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_conditioned_wide_swap_on_cuda_matches_cpu(cuda):
+    """A controlled swap of two 6-qubit registers (a ControlOp wider than
+    DENSE_CAP) at n = 20, where every pair is a row pair: the inner row
+    swap runs in place on the card, on the copies ``_control_ri`` takes,
+    so the card equals the CPU and the input is left alone."""
+    from rustqip_tpu_torch.engine.real_apply import apply_op_ri
+    from rustqip_tpu_torch.ops.matrix_ops import make_control_op, make_swap_op
+
+    n = 20
+    op = make_control_op([0], make_swap_op(range(1, 7), range(7, 13)))
+    v = _state(n, 3)
+    x = planes_from_numpy(v, device=cuda)
+    x0 = (x[0].clone(), x[1].clone())
+    before = (row_swap.LAUNCHES["row_swap"], copy_probe.LAUNCHES["plane_copy"])
+    got = planes_to_numpy(*apply_op_ri(n, op, *x))
+    assert row_swap.LAUNCHES["row_swap"] == before[0] + 1
+    assert copy_probe.LAUNCHES["plane_copy"] == before[1] + 1
+    assert torch.equal(x[0], x0[0]) and torch.equal(x[1], x0[1])
+    want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v)))
+    assert np.abs(got - want).max() == 0.0
+
+
+@pytest.mark.parametrize("strips", [1, 4])
+@pytest.mark.parametrize("inplace", [False, True], ids=["fresh", "inplace"])
+def test_plane_copy_kernel_equals_copy(cuda, strips, inplace):
+    x = planes_from_numpy(_state(16, 5), device=cuda)
+    xr, xi = x[0].clone(), x[1].clone()
+    out = (xr, xi) if inplace else None
+    yr, yi = copy_probe.plane_copy(xr, xi, out=out, strips=strips)
+    torch.cuda.synchronize()
+    assert (yr.data_ptr() == xr.data_ptr()) == inplace
+    assert torch.equal(yr, x[0]) and torch.equal(yi, x[1])
 
 
 def test_kernel_refuses_an_rbf_partner_outside_the_tile(cuda):

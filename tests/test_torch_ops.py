@@ -101,3 +101,20 @@ def test_constructor_errors_match_reference():
             f(R)
         with pytest.raises(PErr):
             f(P)
+
+
+@pytest.mark.parametrize(
+    "indices", [(3, 0, 12, 9), (13,), (5, 1, 7, 2, 11, 8, 0), tuple(range(14))],
+    ids=["mixed4", "one_lane", "rows_and_lanes7", "all14"],
+)
+def test_probs_plan_matches_reference(indices):
+    """The measurement plan (lane-reduction matrix, row-reduction steps and
+    the outcome order, which the port builds by doubling) equals the JAX
+    package's at n = 14."""
+    from rustqip_tpu.ops.measurement_ops import _probs_plan as ref_plan
+
+    from rustqip_tpu_torch.ops.measurement_ops import _probs_plan
+
+    got, want = _probs_plan(14, indices), ref_plan(14, indices)
+    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    assert np.array_equal(got[2], want[2]) and got[3:] == want[3:]
