@@ -14,7 +14,13 @@ measurement -- at n = 28 qubits in float32 (2 GiB of state) and checks the
 results against closed forms and against the plain torch paths on the same
 card: CSWAP, QFT-28, Grover-28 (both forms), bench.py's arms, a controlled
 wide register swap, QPE-28 (m = 24, k = 4), Shor-28 (order of 2 mod 437,
-t = 19) and a 28-qubit ripple adder.
+t = 19), a 28-qubit ripple adder, and the oracle circuits: a traced-oracle
+Grover-28 (function ops), a 14 + 14 XOR oracle and its inverse, the XOR
+oracle under a control (``plane_copy`` on the main path) and a 12-qubit
+sparse permutation. ``measure_prob_fn`` sums a 27-qubit subspace on the
+card, and ``soft_measure`` draws all 28 qubits from the traced Grover-28
+register and from a product state whose every qubit has its own known
+probability of 1.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``), one window per redesigned step kind alone
@@ -39,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,6 +54,8 @@ N_PARITY = 20
 KERNEL_TOL = 1e-6  # kernel vs plain, normalized n=20 state (max abs)
 E2E_TOL = 1e-5  # f32 end to end at n=28 (max abs)
 REPS = 3
+COPY_PER = 20  # copy-floor calls per timed run
+SOFT_DRAWS = 256  # soft_measure draws of the product state
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): bounds are
 # max(bytes / HBM rate, tensor-core flops / TF32 rate).
 HBM_BYTES_PER_S = 3.35e12
@@ -57,9 +66,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS, warm: bool = True) -> float:
+def cuda_ms(fn, reps: int = REPS, warm: bool = True, per: int = 1) -> float:
     """Median milliseconds of ``fn()`` by CUDA events (one warm-up unless
-    ``warm`` is false)."""
+    ``warm`` is false). With ``per`` > 1 each timed run is ``per`` calls
+    back to back, divided by ``per``: the host's time to launch one call
+    then hides behind the calls before it."""
     import torch
 
     if warm:
@@ -69,10 +80,11 @@ def cuda_ms(fn, reps: int = REPS, warm: bool = True) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return statistics.median(times)
 
 
@@ -602,6 +614,288 @@ def phase_main():
     return rows, dict(total), dict(kind_launches), ccs
 
 
+def _value_index(n, reg, values):
+    """State indices (numpy int64) of register values (value bit j on the
+    register's j-th qubit), the other qubits 0."""
+    import numpy as np
+
+    values = np.asarray(values, dtype=np.int64)
+    idx = np.zeros_like(values)
+    for j, q in enumerate(reg.indices):
+        idx |= ((values >> j) & 1) << (n - 1 - q)
+    return idx
+
+
+def phase_oracles():
+    """The function-oracle and wide-sparse circuits at n = 28 through
+    ``run_circuit`` (kernel path vs plain path, launches counted per
+    circuit), each against its closed form: a traced-oracle Grover-28 (a
+    diagonal ``FnOp`` phase oracle and diffusion flip, 3 rounds), a 14 + 14
+    XOR oracle and its inverted circuit, the XOR oracle under a control (a
+    ``ControlOp`` of an ``FnOp`` on 28 indices: ``plane_copy`` on the main
+    path), and a 12-qubit sparse permutation with phases (above
+    ``DENSE_CAP``) on a basis register and an H-superposed one. Returns the
+    rows, the launch and step-kind totals, the compiled circuits, and the
+    Grover-28 state planes with its solution and that solution's
+    probability, for ``phase_measure``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.prelude import inverter
+    from rustqip_tpu_torch.types import Representation
+
+    n = N_MAIN
+    mask = (1 << n) - 1
+    rows, total, kinds, ccs = [], Counter(), Counter(), {}
+    grover_state = {}
+
+    # (a) examples/traced_oracle_example.py at N = 28: which x satisfies
+    # (A x + C) mod 2^28 == TARGET? The register is the whole state, so the
+    # oracle's row index is the state index.
+    a_mul, c_add, target = (2_654_435_761 % (1 << n)) | 1, 0x2B7E5, 0x5555555 & mask
+    solution = (pow(a_mul, -1, 1 << n) * (target - c_add)) % (1 << n)
+
+    def phase_oracle(row):
+        hit = ((a_mul * row.to(torch.int64) + c_add) & mask) == target
+        return row, torch.where(hit, -1.0, 1.0)
+
+    def flip_all_but_zero(row):
+        return row, torch.where(row == 0, 1.0, -1.0)
+
+    def traced_grover(b):
+        r = b.h(b.register(n))
+        for _ in range(3):
+            r = b.apply_fn_matrix(r, phase_oracle, tag="affine-hit-28", diagonal=True)
+            r = b.h(r)
+            r = b.apply_fn_matrix(r, flip_all_but_zero, tag="flip-all-but-zero", diagonal=True)
+            r = b.h(r)
+        return {}
+
+    p_grover = math.sin(7 * math.asin(2.0 ** (-n / 2))) ** 2
+
+    def check_traced_grover(re, im, res, h):
+        p = re.reshape(-1)[solution].item() ** 2 + im.reshape(-1)[solution].item() ** 2
+        if abs(p / p_grover - 1) > 1e-4:
+            raise AssertionError(f"traced Grover-28: p(solution) {p}, want {p_grover}")
+        emit({"phase": "traced_grover28_reading", "path": h["path"], "solution": solution,
+              "p_solution": p, "want": p_grover})
+        grover_state.setdefault("state", (re.clone(), im.clone()))
+
+    # (b) |x>|y0> -> |x>|y0 ^ f(x)>, f(x) = (a x + c) mod 2^14, rx under
+    # H^14; then the same circuit followed by its inverse.
+    k = n // 2
+    xa, xc, y0 = 0x2F35, 0x1A7, 0x2B1E & ((1 << k) - 1)
+
+    def xor_f(x):
+        return (xa * x + xc) & ((1 << k) - 1), 1
+
+    def xor_oracle(b, rx, ry):
+        rx = b.h(rx)
+        return b.apply_function_op(rx, ry, xor_f)
+
+    def xor28(inverted):
+        def build(b):
+            rx, ry = b.register(k), b.register(n - k)
+            rx, ry = xor_oracle(b, rx, ry)
+            if inverted:
+                rx, ry = inverter(b, [rx, ry], xor_oracle)
+            return {"init": [(ry, y0)], "rx": rx, "ry": ry}
+
+        def check(re, im, res, h):
+            flat = re.reshape(-1)
+            if inverted:
+                i = int(_value_index(n, h["ry"], [y0])[0])
+                p = flat[i].item() ** 2 + im.reshape(-1)[i].item() ** 2
+                if p < 1 - 1e-5:
+                    raise AssertionError(f"XOR oracle then its inverse: p(|0>|y0>) = {p}")
+                return
+            xs = np.arange(1 << k)
+            idx = _value_index(n, h["rx"], xs) | _value_index(
+                n, h["ry"], y0 ^ ((xa * xs + xc) & ((1 << k) - 1)))
+            amps = flat[torch.as_tensor(idx, device=flat.device)]
+            if (amps - 2.0 ** (-k / 2)).abs().max().item() > 1e-5 \
+                    or abs((amps ** 2).sum().item() - 1) > 1e-5:
+                raise AssertionError("XOR oracle: a branch misses y0 ^ f(x)")
+
+        return build, check
+
+    # (c) the same oracle (13 + 14 qubits) controlled by a qubit in |+>.
+    def controlled_xor(b):
+        q = b.h(b.qubit())
+        rx, ry = b.h(b.register(k - 1)), b.register(k)
+        cb = b.condition_with(q)
+        rx, ry = cb.apply_function_op(rx, ry, xor_f)
+        q = cb.dissolve()
+        return {"init": [(ry, y0)], "q": q, "rx": rx, "ry": ry}
+
+    def check_controlled_xor(re, im, res, h):
+        flat = re.reshape(-1)
+        xs = np.arange(1 << (k - 1))
+        qbit = 1 << (n - 1 - h["q"].indices[0])
+        for branch, ys in ((0, np.full_like(xs, y0)),
+                           (1, y0 ^ ((xa * xs + xc) & ((1 << k) - 1)))):
+            idx = _value_index(n, h["rx"], xs) | _value_index(n, h["ry"], ys) | (branch * qbit)
+            amps = flat[torch.as_tensor(idx, device=flat.device)]
+            if (amps - 2.0 ** (-k / 2)).abs().max().item() > 1e-5 \
+                    or abs((amps ** 2).sum().item() - 0.5) > 1e-5:
+                raise AssertionError(f"controlled XOR oracle: control branch {branch} wrong")
+
+    # (d) x -> (5 x + 3) mod 2^12 with a phase -1 where 3 | x, on register
+    # values (little-endian rows): out[v] = s(v) in[(5 v + 3) mod 2^12].
+    ks = 12
+    v0 = 0x9C3
+
+    def sign(v):
+        return -1.0 if v % 3 == 0 else 1.0
+
+    def perm_rows(v):
+        return [((5 * v + 3) % (1 << ks), sign(v))]
+
+    def wide_sparse(b):
+        ra, rb = b.register(ks), b.register(ks)
+        if n > 2 * ks:
+            b.register(n - 2 * ks)  # idle qubits: full-width state
+        rb = b.h(rb)
+        ra = b.apply_sparse_matrix_from_function(ra, perm_rows, Representation.LittleEndian)
+        rb = b.apply_sparse_matrix_from_function(rb, perm_rows, Representation.LittleEndian)
+        return {"init": [(ra, v0)], "ra": ra, "rb": rb}
+
+    def check_wide_sparse(re, im, res, h):
+        va = (pow(5, -1, 1 << ks) * (v0 - 3)) % (1 << ks)
+        vs = np.arange(1 << ks)
+        idx = _value_index(n, h["ra"], [va]) | _value_index(n, h["rb"], vs)
+        want = torch.as_tensor([sign(va) * sign(v) * 2.0 ** -6 for v in vs],
+                               dtype=re.dtype, device=re.device)
+        amps = re.reshape(-1)[torch.as_tensor(idx, device=re.device)]
+        if (amps - want).abs().max().item() > 1e-5 or abs((amps ** 2).sum().item() - 1) > 1e-5:
+            raise AssertionError("wide sparse permutation: amplitudes off the closed form")
+
+    xor_plain, check_xor_plain = xor28(False)
+    xor_inv, check_xor_inv = xor28(True)
+    circuits = [
+        ("traced_grover28", traced_grover, check_traced_grover),
+        ("xor_oracle28", xor_plain, check_xor_plain),
+        ("xor_oracle28_inverted", xor_inv, check_xor_inv),
+        ("controlled_xor_oracle28", controlled_xor, check_controlled_xor),
+        ("wide_sparse_perm28", wide_sparse, check_wide_sparse),
+    ]
+    for name, build, check in circuits:
+        row, launches, ccs[name] = run_circuit(name, builder_circuit(build), check)
+        if launches["window_sweep"] <= 0:
+            raise AssertionError(f"{name}: the main path launched no window kernel")
+        if name == "controlled_xor_oracle28" and launches["plane_copy"] <= 0:
+            raise AssertionError(f"{name}: the main path launched no plane_copy kernel")
+        total.update(launches)
+        kinds.update(row["kind_launches"])
+        rows.append(row)
+        emit(row)
+    return rows, total, kinds, ccs, *grover_state["state"], solution, p_grover
+
+
+def phase_measure(grover_re, grover_im, solution, p_solution):
+    """``measure_prob_fn`` at n = 28 over a 27-qubit subspace on the card
+    (tier 1 asserted), with ``f`` the amplitude of a seeded product state,
+    against its closed form; timed warm. Then 64 ``soft_measure`` draws of
+    the whole traced Grover-28 register: the solution's count against its
+    probability, and the draws distinct (the register is near uniform over
+    2^28 outcomes: two repeats among 64 draws have odds below 1e-10). Last,
+    ``SOFT_DRAWS`` draws of all 28 qubits of a product state built as planes
+    on the card, qubit q in cos t_q |0> + sin t_q |1> with p_q = sin^2 t_q
+    rising from 0.1 to 0.9 in q: each qubit's count of ones within 5 sigma of
+    its p_q. Every draw takes the two-stage path (2^28 outcomes); a sampler
+    that ignores the state, or swaps a block's bits with its offset's
+    (qubit q with q + 14: p differs by 0.41), is many sigma off."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.ops import measurement_ops as M
+    from rustqip_tpu_torch.utils.bits import flip_bits
+
+    n = N_MAIN
+    ts = np.random.default_rng(27).uniform(0.1, 1.4, n)
+    # amplitude of prod_q (cos t_q |0> + sin t_q |1>): 7-bit tables
+    tables = []
+    for g in range((n + 6) // 7):
+        vals = np.ones(128)
+        for v in range(128):
+            for b in range(min(7, n - 7 * g)):
+                q = n - 1 - (7 * g + b)
+                vals[v] *= math.sin(ts[q]) if (v >> b) & 1 else math.cos(ts[q])
+        tables.append(torch.as_tensor(vals, dtype=torch.float64, device="cuda"))
+
+    def amp(i):
+        out = 1.0
+        for g, tab in enumerate(tables):
+            part = (i >> (7 * g)) & 127
+            out = out * tab[part.long() if isinstance(part, torch.Tensor) else part]
+        return out
+
+    q0 = 5
+    want = math.sin(ts[q0]) ** 2
+    before = M.TIER_CALLS["device"]
+    p1 = M.measure_prob_fn(n, 1, [q0], amp)
+    if M.TIER_CALLS["device"] != before + 1:
+        raise AssertionError("measure_prob_fn: f did not take tier 1 on the card")
+    if abs(p1 - want) > 1e-6:
+        raise AssertionError(f"measure_prob_fn: p {p1}, want {want}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p0 = M.measure_prob_fn(n, 0, [q0], amp)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if M.TIER_CALLS["device"] != before + 2 or abs(p0 - (1 - want)) > 1e-6:
+        raise AssertionError(f"measure_prob_fn (warm): p {p0}, want {1 - want}")
+
+    gen = torch.Generator().manual_seed(64)
+    draws = 64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outcomes = [M.soft_measure(n, list(range(n)), grover_re, grover_im, gen)
+                for _ in range(draws)]
+    soft_ms = (time.perf_counter() - t0) * 1e3 / draws
+    hits = sum(o == flip_bits(n, solution) for o in outcomes)
+    sigma = math.sqrt(draws * p_solution * (1 - p_solution))
+    if abs(hits - draws * p_solution) > 5 * sigma + 1e-12 or len(set(outcomes)) < draws - 1 \
+            or not all(0 <= o < 1 << n for o in outcomes):
+        raise AssertionError(f"soft_measure: {hits} of {draws} draws hit the solution "
+                             f"(expected {draws * p_solution}), {len(set(outcomes))} distinct")
+
+    ps = [0.1 + 0.8 * q / (n - 1) for q in range(n)]
+    re = torch.ones(1, dtype=torch.float64, device="cuda")
+    for pq in ps:  # qubit 0 is the index's top bit
+        factor = torch.tensor([math.sqrt(1 - pq), math.sqrt(pq)], dtype=torch.float64,
+                              device="cuda")
+        re = torch.outer(re, factor).reshape(-1)
+    re = re.to(torch.float32)
+    im = torch.zeros_like(re)
+    if M.MULTINOMIAL_MAX >= re.numel():
+        raise AssertionError("soft_measure: 2^28 outcomes would not take the two-stage draw")
+    gen = torch.Generator().manual_seed(65)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    product = [M.soft_measure(n, list(range(n)), re, im, gen) for _ in range(SOFT_DRAWS)]
+    product_ms = (time.perf_counter() - t0) * 1e3 / SOFT_DRAWS
+    del re, im
+    ones = [sum((o >> q) & 1 for o in product) for q in range(n)]
+    zs = [(c - SOFT_DRAWS * pq) / math.sqrt(SOFT_DRAWS * pq * (1 - pq))
+          for c, pq in zip(ones, ps)]
+    if max(abs(z) for z in zs) > 5:
+        raise AssertionError(f"soft_measure (product state): counts of ones {ones}, "
+                             f"want {[SOFT_DRAWS * pq for pq in ps]}")
+    emit({"phase": "measure", "n": n, "measure_prob_fn": {
+              "subspace_qubits": n - 1, "p": p1, "want": want, "err": abs(p1 - want),
+              "tier": "device", "warm_ms": warm_ms, "chunk": M.DEVICE_CHUNK},
+          "soft_measure": {"draws": draws, "distinct": len(set(outcomes)),
+                           "solution_hits": hits, "expected": draws * p_solution,
+                           "ms_per_draw": soft_ms},
+          "soft_measure_product": {"draws": SOFT_DRAWS, "ones": ones,
+                                   "max_abs_z": max(abs(z) for z in zs),
+                                   "ms_per_draw": product_ms}})
+
+
 def phase_window_breakdown(ccs):
     """Each kernel window of QFT-28 and of the gate-form Grover-28
     iteration alone, on a seeded random state: kernel time (median of
@@ -834,10 +1128,12 @@ def phase_swap_breakdown(ccs):
 
 
 def phase_circuit_breakdown(ccs):
-    """Every sweep and measurement of QPE-28 and Shor-28's kernel-path plans
-    alone, on a seeded random state: ms by CUDA events (one warm-up, one
-    timed run) and what the sweep is; for a collapsing measurement also the
-    host time of drawing its outcome (``sample_outcome``, host clock)."""
+    """Every sweep and measurement of the kernel-path plans of QPE-28,
+    Shor-28, the traced-oracle Grover-28, the controlled XOR oracle and the
+    wide sparse permutation alone, on a seeded random state: ms by CUDA
+    events (one warm-up, one timed run) and what the sweep is; for a
+    collapsing measurement also the host time of drawing its outcome
+    (``sample_outcome``, host clock)."""
     import torch
 
     from rustqip_tpu_torch.engine.compile import MeasureEntry
@@ -849,7 +1145,8 @@ def phase_circuit_breakdown(ccs):
     g.manual_seed(22)
     x = torch.randn((2, 1 << (n - 7), 128), generator=g, device="cuda")
     x /= x.norm()
-    for name in ("qpe28", "shor28"):
+    for name in ("qpe28", "shor28", "traced_grover28", "controlled_xor_oracle28",
+                 "wide_sparse_perm28"):
         rows = []
         for seg in ccs[name].sweeps:
             if isinstance(seg, MeasureEntry):
@@ -880,9 +1177,13 @@ def phase_circuit_breakdown(ccs):
 
 def phase_copy_floor():
     """One read and one write of the n = 28 float32 plane pair: the copy
-    kernel to fresh planes and in place, with 1 and 4 row strips per
-    thread, beside ``Tensor.copy_`` (the plain version, per plane) and one
-    ``copy_`` of both planes stacked (the library call)."""
+    kernel to fresh planes and in place, with 1 and 4 strips of each plane,
+    beside ``Tensor.copy_`` (the plain version, per plane) and one
+    ``copy_`` of both planes stacked (the library call), and the fresh
+    kernel's time over the library call's. Each time is the median of
+    REPS runs of COPY_PER calls back to back, so that the host's launch
+    time (tens of microseconds through the Python wrapper) is not counted
+    as the card's."""
     import torch
 
     from rustqip_tpu_torch.engine import copy_probe
@@ -903,18 +1204,20 @@ def phase_copy_floor():
         if not torch.equal(x, y):
             raise AssertionError(f"plane_copy strips={strips} differs from its input")
         fresh = cuda_ms(lambda: copy_probe.plane_copy(x[0], x[1], out=(y[0], y[1]),
-                                                      strips=strips))
+                                                      strips=strips), per=COPY_PER)
         inplace = cuda_ms(lambda: copy_probe.plane_copy(y[0], y[1], out=(y[0], y[1]),
-                                                        strips=strips))
+                                                        strips=strips), per=COPY_PER)
         out[f"fresh_strips{strips}_ms"] = fresh
         out[f"inplace_strips{strips}_ms"] = inplace
         out[f"fresh_strips{strips}_GB_per_s"] = nbytes / fresh / 1e6
         out[f"inplace_strips{strips}_GB_per_s"] = nbytes / inplace / 1e6
     if not torch.equal(x, y):
         raise AssertionError("plane_copy in place changed the planes")
-    out["plain_ms"] = cuda_ms(lambda: copy_probe.plane_copy_reference(x[0], x[1], out=(y[0], y[1])))
-    out["library_ms"] = cuda_ms(lambda: y.copy_(x))
+    out["plain_ms"] = cuda_ms(lambda: copy_probe.plane_copy_reference(x[0], x[1], out=(y[0], y[1])),
+                              per=COPY_PER)
+    out["library_ms"] = cuda_ms(lambda: y.copy_(x), per=COPY_PER)
     out["library_GB_per_s"] = nbytes / out["library_ms"] / 1e6
+    out["fresh_over_library"] = out["fresh_strips1_ms"] / out["library_ms"]
     out["floor_ms"] = min(v for k, v in out.items() if k.endswith("strips1_ms")
                           or k.endswith("strips4_ms") or k == "library_ms")
     emit({"phase": "copy_floor", "n": n, **out})
@@ -942,6 +1245,13 @@ def main() -> int:
     parity_err = phase_parity()
     swap_err = phase_swap_parity()
     rows, launches, kind_launches, ccs = phase_main()
+    _, oracle_launches, oracle_kinds, oracle_ccs, g_re, g_im, solution, p_solution = \
+        phase_oracles()
+    ccs.update(oracle_ccs)
+    launches = {k: launches[k] + oracle_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + oracle_kinds)
+    phase_measure(g_re, g_im, solution, p_solution)
+    del g_re, g_im
     kms, pms, qft_err, bound = phase_window_breakdown(ccs)
     step_err = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)

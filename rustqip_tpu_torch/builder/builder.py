@@ -18,6 +18,7 @@ import torch
 from rustqip_tpu_torch.builder.circuit_objects import (
     CircuitObject,
     ControlledMatGate,
+    FnGate,
     GlobalPhaseGate,
     MatGate,
     MeasurementObject,
@@ -50,6 +51,7 @@ from rustqip_tpu_torch.engine.compile import (
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.ops import gates
 from rustqip_tpu_torch.ops.matrix_ops import (
+    FnOp,
     make_control_op,
     make_matrix_op,
     make_sparse_matrix_op,
@@ -116,6 +118,11 @@ class Measurements:
         return {int(i): int(c) for i, c in enumerate(counts) if c}
 
 
+def _fn_op(indices: Tuple[int, ...], gate: FnGate) -> FnOp:
+    return FnOp(indices, gate.fn, gate.tag, gate.conjugated,
+                gate.self_transpose, gate.diagonal)
+
+
 def _lower_item(item: PipelineItem) -> List[PipelineEntry]:
     """Lower one symbolic pipeline item to engine entries
     (the reference's per-gate lowering, builder.rs:439-511)."""
@@ -154,6 +161,8 @@ def _lower_item(item: PipelineItem) -> List[PipelineEntry]:
         return [UnitaryEntry(make_matrix_op(list(indices), obj.data.reshape(-1)))]
     if isinstance(obj, SparseMatGate):
         return [UnitaryEntry(make_sparse_matrix_op(list(indices), obj.rows))]
+    if isinstance(obj, FnGate):
+        return [UnitaryEntry(_fn_op(tuple(indices), obj))]
     if isinstance(obj, ReflectionGate):
         from rustqip_tpu_torch.ops.matrix_ops import make_reflection_op
 
@@ -174,6 +183,8 @@ def _lower_item(item: PipelineItem) -> List[PipelineEntry]:
             inner = make_sparse_matrix_op(
                 list(indices[obj.n_ctrl :]), obj.mat.rows
             )
+        elif isinstance(obj.mat, FnGate):
+            inner = _fn_op(tuple(indices[obj.n_ctrl :]), obj.mat)
         else:
             inner = make_matrix_op(
                 list(indices[obj.n_ctrl :]), obj.mat.data.reshape(-1)
@@ -297,8 +308,10 @@ class LocalBuilder(
     def apply_sparse_matrix(self, r: Register, rows, order=None) -> Register:
         """Apply a sparse unitary given as per-row (col, val) entries — the
         oracle pathway (ref ``UnitaryBuilder`` sparse mat surface,
-        qip/src/builder.rs; iterator at qubit_iterators.rs:60). Width is
-        unbounded: >10-qubit classical oracles lower to gather passes.
+        qip/src/builder.rs; iterator at qubit_iterators.rs:60). Up to
+        ``MAX_SPARSE_BITS`` (20) qubits: ops wider than ``DENSE_CAP`` (10)
+        lower to gather passes, narrower ones to dense passes; wider
+        oracles take ``apply_fn_matrix`` / ``apply_function_op``.
         ``order`` selects the row/column bit convention (default BigEndian,
         matching the engine)."""
         from rustqip_tpu_torch.types import Representation
@@ -312,17 +325,18 @@ class LocalBuilder(
         )
 
     def apply_sparse_matrix_from_function(self, r: Register, f, order=None):
-        """Sparse-from-function oracles are not ported yet."""
-        raise NotImplementedError(
-            "apply_sparse_matrix_from_function is not ported yet: ROADMAP "
-            "port queue item P1"
+        """Record a sparse unitary built from a row -> entries function
+        (ref ``make_sparse_matrix_from_function``, matrix_ops.rs:128 — the
+        FunctionOpIterator analog, qubit_iterators.rs:223)."""
+        from rustqip_tpu_torch.ops.matrix_ops import (
+            make_sparse_matrix_from_function,
         )
+        from rustqip_tpu_torch.types import Representation
 
-    def apply_function_op(self, rx: Register, ry: Register, f, tag=None):
-        """Traced classical-function oracles need FnOp, not ported yet."""
-        raise NotImplementedError(
-            "apply_function_op needs FnOp: ROADMAP port queue item P1"
-        )
+        if order is None:
+            order = Representation.BigEndian
+        rows = make_sparse_matrix_from_function(r.n, f, order)
+        return self.apply_sparse_matrix(r, rows)
 
     # -- rotations primitive -------------------------------------------------
     def rz(self, r: Register, theta: Angle) -> Register:
@@ -616,8 +630,11 @@ class LocalBuilder(
             cr, r = self.toffoli(cr, r)
             r = self.rz(r, half)
             return cr, r
-        if isinstance(obj, (MatGate, SparseMatGate)):
+        if isinstance(obj, (MatGate, SparseMatGate, FnGate)):
             # Native controlled arbitrary unitary (reference todo!()).
+            # FnGate included: a function op has no reference-style gate
+            # decomposition without materializing, so both conditioning
+            # strategies use the engine Control op for it.
             n_ctrl = cr.n
             merged = self.merge_two_registers(cr, r)
             indices = consume(merged, "controlled gate")
@@ -717,7 +734,7 @@ class LocalBuilder(
             )
             out = first if rest is None else self.merge_two_registers(first, rest)
             return cr, out
-        if isinstance(obj, (MatGate, SparseMatGate, ReflectionGate)):
+        if isinstance(obj, (MatGate, SparseMatGate, FnGate, ReflectionGate)):
             return self._push_controlled_mat(cr, r, obj)
         if isinstance(obj, ControlledMatGate):
             n_ctrl_new = cr.n + obj.n_ctrl

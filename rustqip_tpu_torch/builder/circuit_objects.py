@@ -1,7 +1,6 @@
 """Pipeline circuit objects: the symbolic gate set the builder records.
 
-Port of ``rustqip_tpu/builder/circuit_objects.py`` (host-only). The
-traced-function gate (``FnGate``) waits for ``FnOp`` (ROADMAP port queue).
+Port of ``rustqip_tpu/builder/circuit_objects.py`` (host-only).
 
 Mirrors the reference's ``BuilderCircuitObject``/``UnitaryMatrixObject``/
 ``MeasurementObject`` (``qip/src/builder.rs:101-290``): gates stay symbolic
@@ -108,8 +107,9 @@ class SparseMatGate:
     the builder-level oracle pathway (ref ``sparse_mat``,
     qip/src/builder.rs and ``SparseMatrixOpIterator``,
     qip-iterators/src/iterators/qubit_iterators.rs:60). Unlike dense MAT,
-    width is unbounded: the engine applies it as gather passes, so
-    >10-qubit classical oracles (Grover/Shor style) are one op.
+    it goes up to ``MAX_SPARSE_BITS`` (20) qubits: the engine applies it
+    as gather passes, so >10-qubit classical oracles (Grover/Shor style)
+    are one op.
     """
 
     __slots__ = ("rows",)
@@ -144,6 +144,52 @@ class SparseMatGate:
 
     def __repr__(self):
         return f"SparseMatGate(n={self.n})"
+
+
+class FnGate:
+    """Function oracle gate: entries computed at apply time by
+    ``fn(row) -> (col, val)``, elementwise over int32 torch tensors — the
+    builder-level face of ``ops.matrix_ops.FnOp`` (the analog of the
+    reference's lazy ``FunctionOpIterator``, qip-iterators/src/iterators/
+    qubit_iterators.rs:223). Unlike ``SparseMatGate``, nothing is tabled:
+    O(1) host memory at any width. ``tag`` is the structural identity
+    (plan caching / fingerprints); ``self_transpose`` marks XOR-oracle
+    structure, making the gate invertible via elementwise conjugation.
+    """
+
+    __slots__ = ("n_qubits", "fn", "tag", "conjugated", "self_transpose",
+                 "diagonal")
+
+    def __init__(self, n_qubits, fn, tag, conjugated=False,
+                 self_transpose=False, diagonal=False):
+        if n_qubits < 1:
+            raise CircuitError("FnGate needs at least one qubit")
+        self.n_qubits = int(n_qubits)
+        self.fn = fn
+        self.tag = str(tag)
+        self.conjugated = bool(conjugated)
+        self.self_transpose = bool(self_transpose) or bool(diagonal)
+        self.diagonal = bool(diagonal)
+
+    @property
+    def n(self) -> int:
+        return self.n_qubits
+
+    def fingerprint(self):
+        return ("fn", self.n_qubits, self.tag, self.conjugated,
+                self.self_transpose, self.diagonal)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, FnGate)
+            and self.fingerprint() == other.fingerprint()
+        )
+
+    def __hash__(self):
+        return hash(self.fingerprint())
+
+    def __repr__(self):
+        return f"FnGate(n={self.n_qubits}, tag={self.tag!r})"
 
 
 class ReflectionGate:
@@ -246,7 +292,7 @@ class RepeatBlock:
 
 UnitaryObject = Union[
     NamedGate, RzGate, GlobalPhaseGate, MatGate, SparseMatGate,
-    ReflectionGate, ControlledMatGate, RepeatBlock,
+    FnGate, ReflectionGate, ControlledMatGate, RepeatBlock,
 ]
 
 
@@ -329,12 +375,24 @@ def invert_circuit_object(co: CircuitObject) -> List[CircuitObject]:
                 [[(c, complex(v).conjugate()) for c, v in r] for r in rows]
             )
         ]
+    elif isinstance(obj, FnGate):
+        if not obj.self_transpose:
+            raise CircuitError(
+                "Cannot invert a general function gate (its inverse "
+                "needs the transposed column map); XOR-structured oracles "
+                "(apply_function_op / self_transpose=True) invert via "
+                "elementwise conjugation."
+            )
+        seq = [
+            FnGate(obj.n_qubits, obj.fn, obj.tag, not obj.conjugated,
+                   True, obj.diagonal)
+        ]
     elif isinstance(obj, ReflectionGate):
         seq = [obj]  # self-inverse
     elif isinstance(obj, ControlledMatGate):
         if isinstance(obj.mat, ReflectionGate):
             seq = [obj]  # self-inverse inner => self-inverse control
-        elif isinstance(obj.mat, SparseMatGate):
+        elif isinstance(obj.mat, (SparseMatGate, FnGate)):
             (inner,) = invert_circuit_object(
                 CircuitObject(obj.mat.n, obj.mat)
             )

@@ -132,12 +132,66 @@ class UnitaryBuilderMixin:
         """Apply a single-qubit matrix to every qubit of ``r`` (ref :265)."""
         return self.apply_circuit_object(r, self.matrix_to_circuitobject(1, data))
 
-    def apply_fn_matrix(self, r: Register, fn, tag=None,
-                        self_transpose: bool = False, diagonal: bool = False):
-        """Traced-function unitaries (``FnOp``) are not ported yet."""
-        raise NotImplementedError(
-            "apply_fn_matrix needs FnOp: ROADMAP port queue item P1"
+    def apply_fn_matrix(
+        self, r: Register, fn, tag=None, self_transpose: bool = False,
+        diagonal: bool = False,
+    ) -> Register:
+        """Apply a function unitary: ``fn(row) -> (col, val)`` elementwise
+        over int32 torch tensors, entries in the register's big-endian
+        index space. Nothing materializes — the column map and values are
+        computed per block of the state at apply time, up to 31 qubits
+        (the lazy-streaming analog of the reference's
+        FunctionOpIterator, qubit_iterators.rs:223; contrast
+        ``apply_sparse_matrix_from_function``, which tables 2^n rows).
+        ``fn`` must define a unitary (bijective columns, |val| = 1) —
+        trusted, not validated, exactly like the reference.
+        ``diagonal=True`` declares a phase oracle (col == row): applied as
+        one elementwise multiply, no gather. Defined on the mixin so
+        ``Conditioned`` routes it through ``try_apply_with_condition``.
+
+        ``tag`` is the op's STRUCTURAL IDENTITY: equality, fingerprints
+        and plan caching key on (tag, flags), not the callable. Two
+        DIFFERENT fns given the same explicit tag compare equal and can be
+        deduped into silently wrong results — give distinct oracles
+        distinct tags (or pass ``tag=None`` for a session-unique auto
+        tag)."""
+        from rustqip_tpu_torch.builder.circuit_objects import FnGate
+        from rustqip_tpu_torch.ops.matrix_ops import make_fn_op
+
+        op = make_fn_op(list(range(r.n)), fn, tag, self_transpose, diagonal)
+        return self.apply_circuit_object(
+            r,
+            CircuitObject(
+                r.n,
+                FnGate(r.n, op.fn, op.tag, False, op.self_transpose,
+                       op.diagonal),
+            ),
         )
+
+    def apply_function_op(self, rx: Register, ry: Register, f, tag=None):
+        """Classical-function oracle |x>|y> -> theta(x) |x>|y XOR f(x)>
+        as ONE function op (ref ``FunctionOpIterator::new``,
+        qubit_iterators.rs:232-253). ``f(x) -> (fx, theta)`` is
+        elementwise over int32 torch tensors; ``x``/``fx`` are register
+        VALUES in the little-endian across-the-qubit-list convention
+        (matching init values and measurement outcomes). XOR structure
+        makes the op self-transpose, so the built circuit inverts. Returns
+        fresh ``(rx, ry)`` handles. Defined on the mixin (the JAX package
+        has it on ``LocalBuilder`` alone), so ``Conditioned`` records a
+        controlled oracle."""
+        from rustqip_tpu_torch.builder.circuit_objects import FnGate
+        from rustqip_tpu_torch.ops.matrix_ops import make_function_op
+
+        kx, ky = rx.n, ry.n
+        # Built in local op space [0..kx+ky): the op's fn only depends on
+        # (kx, ky); recording uses the absolute wire indices.
+        op = make_function_op(list(range(kx)), list(range(kx, kx + ky)), f, tag)
+        r = self.apply_circuit_object(
+            self.merge_two_registers(rx, ry),
+            CircuitObject(kx + ky, FnGate(kx + ky, op.fn, op.tag, False, True)),
+        )
+        res = self.split_register_relative(r, range(kx))
+        return res.selected, res.remaining
 
     def apply_reflection(self, r: Register) -> Register:
         """Reflect ``r`` about its uniform superposition:

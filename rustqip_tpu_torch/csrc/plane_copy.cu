@@ -12,39 +12,41 @@
 //
 // What bounds it on an H100: device-memory bytes, each plane read once and
 // written once: 2 planes x 2 x 1 GiB = 4.29 GB at n = 28 in f32, 1.28 ms at
-// 3.35 TB/s. Its measured time is the achievable floor that every other
-// memory-bound kernel of the port is held against beside that bound.
+// 3.35 TB/s.
 //
-// What the design does about it. A grid-stride loop over 16-byte units,
-// neighbouring lanes on neighbouring addresses. With S strips the planes
-// are cut into S contiguous row strips and each thread loads its unit of
-// every strip of both planes before it stores any (2 S loads in flight per
-// thread), mirroring probe2's stream count. In place, each thread reads
-// and writes only its own units, so the copy is a write of the same values.
+// The design: a grid of short blocks, no persistent loop. Block b copies
+// 256 x S 16-byte units of plane b & 1: each thread loads its unit of each
+// of the S strips (S = strips, 1 or 4: the plane cut into S contiguous
+// strips, the counterpart of probe2's row strips) and then stores them;
+// neighbouring threads take neighbouring units. Every block is short, so
+// the block scheduler keeps every SM full to the last wave: that, not more
+// bytes in flight, is what the copy needs here. Persistent grids (one CTA
+// per SM driving a ring of TMA bulk copies; register streams with four
+// loads in flight per thread; a grid-stride loop) stayed 4-7 % behind
+// Tensor.copy_, where short blocks, by registers or by TMA, come within
+// 2 % of it, this design within 1 % (PERF.md; the A/B harness that built
+// all five designs is rustqip_tpu_torch/tools/copy_ab.py at the git tag
+// copy-ab-harness). In place is safe: each thread reads its units before
+// it writes them, and no two threads share a unit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define THREADS 256
+
 template <int S>
-__global__ void __launch_bounds__(256) plane_copy_kernel(const uint4* xr,
-                                                         const uint4* xi,
-                                                         uint4* yr, uint4* yi,
-                                                         long long per) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += stride) {
-    uint4 a[S], b[S];
+__global__ void __launch_bounds__(THREADS) plane_copy_kernel(const uint4* xr, const uint4* xi,
+                                                             uint4* yr, uint4* yi,
+                                                             long long len) {
+  const uint4* x = (blockIdx.x & 1) ? xi : xr;
+  uint4* y = (blockIdx.x & 1) ? yi : yr;
+  const long long i = (long long)(blockIdx.x >> 1) * THREADS + threadIdx.x;
+  if (i >= len) return;
+  uint4 a[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      a[s] = xr[s * per + i];
-      b[s] = xi[s * per + i];
-    }
+  for (int s = 0; s < S; ++s) a[s] = x[s * len + i];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      yr[s * per + i] = a[s];
-      yi[s * per + i] = b[s];
-    }
-  }
+  for (int s = 0; s < S; ++s) y[s * len + i] = a[s];
 }
 
 // x*, y*: planes of `bytes` bytes each, 16-byte aligned; y may equal x (in
@@ -54,19 +56,18 @@ extern "C" int rq_plane_copy(const void* xr, const void* xi, void* yr,
                              void* stream) {
   if (strips != 1 && strips != 4) return (int)cudaErrorInvalidValue;
   if (bytes % (16LL * strips)) return (int)cudaErrorInvalidValue;
-  const long long per = bytes / 16 / strips;
-  if (per == 0) return 0;
+  const long long len = bytes / 16 / strips;  // units of one strip
+  if (len == 0) return 0;
+  const long long blocks = 2 * ((len + THREADS - 1) / THREADS);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const long long want = (per + threads - 1) / threads;
-  const int blocks = (int)(want < 132LL * 16 ? want : 132LL * 16);
-  const uint4* a = reinterpret_cast<const uint4*>(xr);
-  const uint4* b = reinterpret_cast<const uint4*>(xi);
-  uint4* c = reinterpret_cast<uint4*>(yr);
-  uint4* d = reinterpret_cast<uint4*>(yi);
+  const uint4* a = static_cast<const uint4*>(xr);
+  const uint4* b = static_cast<const uint4*>(xi);
+  uint4* c = static_cast<uint4*>(yr);
+  uint4* d = static_cast<uint4*>(yi);
   if (strips == 1)
-    plane_copy_kernel<1><<<blocks, threads, 0, st>>>(a, b, c, d, per);
+    plane_copy_kernel<1><<<(unsigned)blocks, THREADS, 0, st>>>(a, b, c, d, len);
   else
-    plane_copy_kernel<4><<<blocks, threads, 0, st>>>(a, b, c, d, per);
+    plane_copy_kernel<4><<<(unsigned)blocks, THREADS, 0, st>>>(a, b, c, d, len);
   return (int)cudaGetLastError();
 }

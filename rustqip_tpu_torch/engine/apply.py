@@ -3,8 +3,10 @@
 Port of the parts of ``rustqip_tpu/engine/apply.py`` that the (re, im)
 execution domain uses: the canonical ``(R, C)`` geometry (``_geometry``),
 the dense block plan (``_dense_plan``), the phase-product monomial plan
-(``_phase_plan``/``_phase_mul_ri``), control masks, the structured swap
-passes and the reflection pass. Plans are numpy and cached; the passes are
+(``_phase_plan``/``_phase_mul_ri``), the gather passes of wide sparse ops
+(``_sparse_apply_planes``) and function ops (``_fn_apply_planes``),
+control masks, the structured swap passes and the reflection pass. Plans
+are numpy and cached; the passes are
 torch on whatever device the planes live on. The JAX package's complex-array
 path (``_apply_dense``, ``_t_apply``, ...) is not carried over: the port has
 one execution domain, (re, im) planes of shape ``(R, 128)`` in f32 or f64.
@@ -24,8 +26,9 @@ import numpy as np
 import torch
 
 from rustqip_tpu_torch.errors import CircuitError
-from rustqip_tpu_torch.ops.matrix_ops import expand_op_matrix
+from rustqip_tpu_torch.ops.matrix_ops import expand_op_matrix, fn_values
 from rustqip_tpu_torch.types import MINOR_QUBITS
+from rustqip_tpu_torch.utils.bits import move_bits
 
 #: Largest op support materialized as a dense matrix on the host.
 DENSE_CAP = 10
@@ -276,6 +279,172 @@ def _phase_mul_ri(n: int, op, r2d: torch.Tensor, i2d: torch.Tensor):
             torch.where(mask, out_r * pc - out_i * ps, out_r),
             torch.where(mask, out_r * ps + out_i * pc, out_i),
         )
+    return out_r, out_i
+
+
+#: Largest number of state elements one gather block covers: a block's
+#: int64 source indices and the fn's temporaries stay a few hundred MiB,
+#: where whole-state (R, C) index arrays would be 1-2 GiB each at n = 28.
+GATHER_BLOCK = 1 << 24
+
+
+def _row_blocks(R: int, C: int):
+    """``(r0, r1)`` row ranges of at most ``GATHER_BLOCK`` elements."""
+    step = max(1, GATHER_BLOCK // C)
+    for r0 in range(0, R, step):
+        yield r0, min(R, r0 + step)
+
+
+@lru_cache(maxsize=256)
+def _bit_runs(n: int, indices: Tuple[int, ...]):
+    """How the (R, C) view's row and column bits map onto the op-local
+    big-endian index (bit ``k-1-j`` is qubit ``indices[j]``), as
+    ``move_bits`` runs ``(view_bit, local_bit, length)`` of consecutive
+    bits: one run for a contiguous, ordered stretch of qubits. Returns the
+    row runs, the column runs, and the row and column masks of the op's
+    bits."""
+    k = len(indices)
+    m, _, _ = _geometry(n)
+    n_m = n - m
+    runs = {True: [], False: []}
+    for j in reversed(range(k)):
+        q = indices[j]
+        on_row = q < n_m
+        vb, lb = (n_m - 1 - q) if on_row else (n - 1 - q), k - 1 - j
+        rr = runs[on_row]
+        if rr and rr[-1][0] + rr[-1][2] == vb and rr[-1][1] + rr[-1][2] == lb:
+            rr[-1][2] += 1
+        else:
+            rr.append([vb, lb, 1])
+    row_mask = sum(((1 << ln) - 1) << vb for vb, _, ln in runs[True])
+    col_mask = sum(((1 << ln) - 1) << vb for vb, _, ln in runs[False])
+    return (tuple(map(tuple, runs[True])), tuple(map(tuple, runs[False])),
+            row_mask, col_mask)
+
+
+def _inverse_runs(runs):
+    """The same runs read the other way: local bits back to view bits."""
+    return tuple((lb, vb, ln) for vb, lb, ln in runs)
+
+
+def _local_rows(n: int, indices, rows: torch.Tensor, cols: torch.Tensor):
+    """The op-local big-endian row index at each (row, col) position of a
+    row block (the dtype of ``rows``), and the row/col masks of the op's
+    bits."""
+    row_runs, col_runs, row_mask, col_mask = _bit_runs(n, tuple(indices))
+    return (move_bits(rows, row_runs)[:, None] | move_bits(cols, col_runs)[None, :],
+            row_mask, col_mask)
+
+
+def _gather_planes(re2d, im2d, src_row, src_col):
+    """``re2d[src_row, src_col]`` and the same of ``im2d`` by flat index."""
+    C = re2d.shape[1]
+    src = src_row.to(torch.int64) * C + src_col
+    return re2d.reshape(-1)[src], im2d.reshape(-1)[src]
+
+
+@lru_cache(maxsize=64)
+def _sparse_plan(n: int, indices: Tuple[int, ...], rows):
+    """Host plan for a gather-based sparse apply of any width
+    (``apply._sparse_plan``): each sub-row's entries padded to the max
+    nonzeros-per-row ``T``, as (T, 2^k) column and value tables, and the
+    spread of an op-local column index onto the row/col bits of the (R, C)
+    view."""
+    k = len(indices)
+    m, _, _ = _geometry(n)
+    n_m = n - m
+    dim = 1 << k
+    max_nnz = max(len(r) for r in rows)
+    cols_t = np.zeros((max_nnz, dim), np.int64)
+    vre_t = np.zeros((max_nnz, dim), np.float64)
+    vim_t = np.zeros((max_nnz, dim), np.float64)
+    for row, entries in enumerate(rows):
+        for t, (c, v) in enumerate(entries):
+            cols_t[t, row] = c
+            vre_t[t, row] = v.real
+            vim_t[t, row] = v.imag
+    s = np.arange(dim, dtype=np.int64)
+    spread_row = np.zeros(dim, np.int64)
+    spread_col = np.zeros(dim, np.int64)
+    for j, q in enumerate(indices):
+        bit = (s >> (k - 1 - j)) & 1
+        if q < n_m:
+            spread_row |= bit << (n_m - 1 - q)
+        else:
+            spread_col |= bit << (n - 1 - q)
+    return max_nnz, cols_t, vre_t, vim_t, spread_row, spread_col
+
+
+def _sparse_apply_planes(n: int, op, re2d: torch.Tensor, im2d: torch.Tensor):
+    """Gather-based sparse apply on (R, C) planes: ``T`` gather +
+    multiply-accumulate passes (one for a permutation oracle), in row
+    blocks of ``GATHER_BLOCK`` elements. Returns fresh planes."""
+    max_nnz, cols_t, vre_t, vim_t, spread_row, spread_col = _sparse_plan(
+        n, tuple(op.indices), op.rows
+    )
+    _, R, C = _geometry(n)
+    dev = re2d.device
+
+    def table(a, dtype=torch.int64):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    cols_j, srow, scol = table(cols_t), table(spread_row), table(spread_col)
+    vre = table(vre_t, re2d.dtype)
+    vim = table(vim_t, re2d.dtype) if np.any(vim_t) else None
+    cols = torch.arange(C, dtype=torch.int64, device=dev)
+    out_r, out_i = torch.empty_like(re2d), torch.empty_like(im2d)
+    for r0, r1 in _row_blocks(R, C):
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        pat, row_mask, col_mask = _local_rows(n, op.indices, rows, cols)
+        base_row = (rows & ~row_mask)[:, None]
+        base_col = (cols & ~col_mask)[None, :]
+        acc_r = acc_i = None
+        for t in range(max_nnz):
+            sc = cols_j[t][pat]
+            gr, gi = _gather_planes(re2d, im2d, base_row | srow[sc],
+                                    base_col | scol[sc])
+            vr = vre[t][pat]
+            tr, ti = gr * vr, gi * vr
+            if vim is not None and np.any(vim_t[t]):
+                vi = vim[t][pat]
+                tr, ti = tr - gi * vi, ti + gr * vi
+            acc_r = tr if acc_r is None else acc_r + tr
+            acc_i = ti if acc_i is None else acc_i + ti
+        out_r[r0:r1], out_i[r0:r1] = acc_r, acc_i
+    return out_r, out_i
+
+
+def _fn_apply_planes(n: int, op, re2d: torch.Tensor, im2d: torch.Tensor):
+    """Function-op apply on (R, C) planes (``apply._fn_apply_planes``): per
+    row block, ``op.fn`` on the int32 op-local row indices gives each
+    position's source column and value, then ONE gather + multiply; a
+    ``diagonal`` op skips the gather (one elementwise multiply). Nothing is
+    tabled: O(block) memory at any width. Returns fresh planes."""
+    _, R, C = _geometry(n)
+    dev = re2d.device
+    row_runs, col_runs, _, _ = _bit_runs(n, tuple(op.indices))
+    to_row, to_col = _inverse_runs(row_runs), _inverse_runs(col_runs)
+    cols = torch.arange(C, dtype=torch.int32, device=dev)
+    out_r, out_i = torch.empty_like(re2d), torch.empty_like(im2d)
+    for r0, r1 in _row_blocks(R, C):
+        rows = torch.arange(r0, r1, dtype=torch.int32, device=dev)
+        pat, row_mask, col_mask = _local_rows(n, op.indices, rows, cols)
+        sc, val = op.fn(pat)
+        if op.diagonal:
+            gr, gi = re2d[r0:r1], im2d[r0:r1]
+        else:
+            sc = torch.as_tensor(sc, device=dev)
+            gr, gi = _gather_planes(
+                re2d, im2d,
+                (rows & ~row_mask)[:, None] | move_bits(sc, to_row),
+                (cols & ~col_mask)[None, :] | move_bits(sc, to_col),
+            )
+        vr, vi = fn_values(val, re2d, op.conjugated)
+        if vi is None:
+            out_r[r0:r1], out_i[r0:r1] = gr * vr, gi * vr
+        else:
+            out_r[r0:r1] = gr * vr - gi * vi
+            out_i[r0:r1] = gi * vr + gr * vi
     return out_r, out_i
 
 

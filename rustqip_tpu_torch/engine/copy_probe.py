@@ -51,7 +51,9 @@ def _lib():
 
 def plane_copy(xr: torch.Tensor, xi: torch.Tensor, out=None, strips: int = 1):
     """Copy a plane pair; returns ``(yr, yi)``. ``strips`` (1 or 4) is the
-    number of row strips each thread reads at once on the card."""
+    number of contiguous strips of each plane the kernel streams at once on
+    the card: each thread loads its 16-byte unit of every strip before it
+    stores any (``csrc/plane_copy.cu``)."""
     if strips not in STRIPS:
         raise ValueError(f"plane_copy: strips must be one of {STRIPS}")
     if xr.device.type == "cpu":

@@ -17,6 +17,7 @@ import numpy as np
 
 from rustqip_tpu_torch.ops.matrix_ops import (
     DenseOp,
+    FnOp,
     MatrixOp,
     PhaseProductOp,
     ReflectionOp,
@@ -156,6 +157,7 @@ def fuse_ops(
         joint = block_indices + tuple(i for i in op.indices if i not in block_indices)
         if (
             op.num_indices > max_qubits
+            or isinstance(op, FnOp)  # function ops stay lazy — never densify
             # reflections are one reduction pass at any width — never densify
             or isinstance(op, ReflectionOp)
             or (keep is not None and keep(op))

@@ -34,16 +34,19 @@ from rustqip_tpu_torch.engine.apply import (
     _control_mask_2d,
     _cross_swap_planes,
     _dense_plan,
+    _fn_apply_planes,
     _geometry,
     _mat_key,
     _phase_mul_ri,
     _phase_plan,
     _row_segment_shape,
+    _sparse_apply_planes,
     _swap_schedule,
 )
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
+    FnOp,
     MatrixOp,
     PhaseProductOp,
     ReflectionOp,
@@ -157,7 +160,8 @@ def _control_ri(n: int, op: ControlOp, re, im) -> Pair:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im)
     _, R, C = _geometry(n)
     # The inner op may update its planes in place (a row swap on CUDA), and
-    # the select below reads the input again: the inner op gets copies.
+    # the select below reads the input again: the inner op gets copies
+    # (also for a gather op, which only reads them: one rule for all).
     in_r, in_i = apply_op_ri(
         n, op.inner, *copy_probe.plane_copy(re.contiguous(), im.contiguous())
     )
@@ -184,10 +188,7 @@ def apply_op_ri(n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor) -> Pai
         return _dense_ri(n, op.indices, op.data, re, im)
     if isinstance(op, SparseOp):
         if op.num_indices > DENSE_CAP:
-            raise NotImplementedError(
-                "SparseOp wider than DENSE_CAP (gather passes) is not "
-                "ported yet: ROADMAP port queue item P1"
-            )
+            return _sparse_apply_planes(n, op, re, im)
         return _dense_ri(n, op.indices, op_to_dense(op), re, im)
     if isinstance(op, SwapOp):
         cross, rowp, colp, mixed = _swap_schedule(n, op)
@@ -202,6 +203,8 @@ def apply_op_ri(n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor) -> Pai
         return re, im
     if isinstance(op, ControlOp):
         return _control_ri(n, op, re, im)
+    if isinstance(op, FnOp):
+        return _fn_apply_planes(n, op, re, im)
     if isinstance(op, ReflectionOp):
         return _apply_reflection_2d(n, op, re), _apply_reflection_2d(n, op, im)
     raise TypeError(f"Unknown op {op!r}")

@@ -33,6 +33,7 @@ from typing import List, Sequence, Tuple
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
+    FnOp,
     MatrixOp,
     PhaseProductOp,
     ReflectionOp,
@@ -62,6 +63,13 @@ def remap_op(op: MatrixOp, pos: Sequence[int]) -> MatrixOp:
         )
     if isinstance(op, SwapOp):
         return SwapOp(tuple(pos[q] for q in op.indices))
+    if isinstance(op, FnOp):
+        # fn is keyed by POSITION within ``indices``: a positional remap
+        # is exact.
+        return FnOp(
+            tuple(pos[q] for q in op.indices), op.fn, op.tag,
+            op.conjugated, op.self_transpose, op.diagonal,
+        )
     if isinstance(op, ReflectionOp):
         return ReflectionOp(tuple(sorted(pos[q] for q in op.indices)))
     raise TypeError(f"Unknown op {op!r}")

@@ -3,7 +3,7 @@
 Duck-typed on attribute and class names, so nothing here imports JAX or
 ``rustqip_tpu``: the port's tests build a circuit once with the JAX
 package's constructors and feed both packages the same ops and the same
-seeded numpy states.
+seeded numpy states. A function op's ``fn`` crosses as is.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
+    FnOp,
     MatrixOp,
     PhaseProductOp,
     ReflectionOp,
@@ -54,9 +55,14 @@ def op_from_reference(op) -> MatrixOp:
         )
     if kind == "ReflectionOp":
         return ReflectionOp(tuple(int(q) for q in op.indices))
-    raise NotImplementedError(
-        f"{kind} is not ported yet (ROADMAP port queue)"
-    )
+    if kind == "FnOp":
+        # the fn is carried as is: it must compute with operators that
+        # int32 torch tensors and the JAX package's arrays both take
+        return FnOp(
+            tuple(int(q) for q in op.indices), op.fn, str(op.tag),
+            bool(op.conjugated), bool(op.self_transpose), bool(op.diagonal),
+        )
+    raise TypeError(f"Unknown op {op!r}")
 
 
 def ops_from_reference(ops: Sequence) -> list:

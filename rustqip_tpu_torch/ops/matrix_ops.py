@@ -2,12 +2,10 @@
 
 Port of ``rustqip_tpu/ops/matrix_ops.py`` (itself a re-design of the
 reference op IR, ``qip-iterators/src/iterators/ops.rs:11-20``, and its
-constructors in ``qip/src/state_ops/matrix_ops.rs``). Pure numpy: ops are
-host-side descriptions that the engine turns into passes over the (re, im)
-planes.
-
-Not ported yet (ROADMAP "Port queue"): ``FnOp`` and its constructors
-(``make_fn_op``, ``make_function_op``, ``make_sparse_matrix_from_function``).
+constructors in ``qip/src/state_ops/matrix_ops.rs``). Ops are host-side
+descriptions that the engine turns into passes over the (re, im) planes;
+only a function op (``FnOp``) reaches torch, whose ``fn`` is evaluated on
+int32 index tensors.
 
 Conventions (identical to the reference):
 * qubit ``i`` is bit ``n-1-i`` of the state index ("big-endian");
@@ -17,10 +15,14 @@ Conventions (identical to the reference):
 
 from __future__ import annotations
 
+import itertools
+import weakref
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple, Union
+from functools import lru_cache
+from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.types import Representation
@@ -164,7 +166,61 @@ class ReflectionOp:
         return hash(("ReflectionOp", self.indices))
 
 
-MatrixOp = Union[DenseOp, SparseOp, SwapOp, ControlOp, PhaseProductOp, ReflectionOp]
+@dataclass(frozen=True)
+class FnOp:
+    """Function oracle op: a generalized permutation whose single nonzero
+    per row is computed at apply time — ``fn(row) -> (col, val)`` with
+    ``row`` an int32 torch tensor (any shape, elementwise), giving matrix
+    entries ``M[row, col] = val``. The analog of the reference's lazy
+    ``FunctionOpIterator`` (qip-iterators/src/iterators/
+    qubit_iterators.rs:223): where ``SparseOp`` tables 2^k entries
+    (capped at ``MAX_SPARSE_BITS``), an ``FnOp`` tables nothing — column
+    indices and values come from index bit arithmetic over blocks of the
+    state, O(1) host memory at any width.
+
+    ``fn`` must be elementwise over int32 tensors (torch operators; the
+    JAX package's ``fn`` takes jax arrays) and define a unitary (column
+    map bijective, |val| = 1) — like the reference, trusted, not
+    validated. ``tag`` is the op's structural identity for plan caching:
+    two FnOps with equal tags (and flags) are assumed identical.
+    ``self_transpose`` marks XOR-oracle structure (|x>|y> -> theta(x)
+    |x>|y ^ f(x)>), for which transpose == self and the inverse is the
+    elementwise conjugate. ``diagonal`` asserts ``fn(row) == (row, val)``
+    for every row (a phase oracle): the engine then skips the gather —
+    one elementwise multiply per pass, and the op is trivially
+    self-transpose."""
+
+    indices: Tuple[int, ...]
+    fn: Callable
+    tag: str
+    conjugated: bool = False
+    self_transpose: bool = False
+    diagonal: bool = False
+
+    @property
+    def num_indices(self) -> int:
+        return len(self.indices)
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, FnOp)
+            and self.indices == other.indices
+            and self.tag == other.tag
+            and self.conjugated == other.conjugated
+            and self.self_transpose == other.self_transpose
+            and self.diagonal == other.diagonal
+        )
+
+    def __hash__(self) -> int:
+        return hash(
+            ("FnOp", self.indices, self.tag, self.conjugated,
+             self.self_transpose, self.diagonal)
+        )
+
+
+MatrixOp = Union[
+    DenseOp, SparseOp, SwapOp, ControlOp, PhaseProductOp, FnOp, ReflectionOp
+]
 
 #: Largest diagonal materialized per term (2^16 complex values).
 DIAG_CAP = 16
@@ -257,6 +313,172 @@ def make_sparse_matrix_op(
     return SparseOp(indices, frozen)
 
 
+def make_sparse_matrix_from_function(
+    n: int,
+    f: Callable[[int], Sequence[Tuple[int, complex]]],
+    order: Representation = Representation.BigEndian,
+) -> List[List[Tuple[int, complex]]]:
+    """Build sparse rows from a row->entries function (ref matrix_ops.rs:128);
+    pass the result to ``make_sparse_matrix_op``."""
+    if n > MAX_SPARSE_BITS:
+        raise CircuitError(
+            f"Sparse function op on {n} qubits exceeds the supported "
+            f"width ({MAX_SPARSE_BITS}); see MAX_SPARSE_BITS."
+        )
+    out: List[List[Tuple[int, complex]]] = []
+    for indx in range(1 << n):
+        row = flip_bits(n, indx) if order is Representation.LittleEndian else indx
+        entries = f(row)
+        if order is Representation.LittleEndian:
+            entries = [(flip_bits(n, col), val) for col, val in entries]
+        out.append([(int(c), complex(v)) for c, v in entries])
+    return out
+
+
+@lru_cache(maxsize=32)
+def _reversal_table(w: int, device) -> torch.Tensor:
+    """The w-bit reversal of every w-bit value, on ``device``."""
+    v = np.arange(1 << w, dtype=np.int64)
+    out = np.zeros_like(v)
+    for j in range(w):
+        out |= ((v >> j) & 1) << (w - 1 - j)
+    return torch.as_tensor(out, device=device)
+
+
+def flip_bits_traced(k: int, v):
+    """Elementwise k-bit reversal of an int tensor (or a Python int or
+    numpy array): the tensor analog of ``flip_bits``. A tensor takes its
+    bits in pieces of at most 16 through one reversal table on its device:
+    a few whole-tensor ops a piece, where a bit loop takes four a bit."""
+    if not isinstance(v, torch.Tensor):
+        out = v - v  # zeros of v's dtype/shape (arrays and ints alike)
+        for j in range(k):
+            out = out | (((v >> j) & 1) << (k - 1 - j))
+        return out
+    out = torch.zeros_like(v)
+    for lo in range(0, k, 16):
+        w = min(16, k - lo)
+        piece = ((v >> lo) & ((1 << w) - 1)).long()
+        out = out | (_reversal_table(w, v.device)[piece].to(v.dtype) << (k - lo - w))
+    return out
+
+
+# Session-stable serials for auto-generated FnOp tags. id(fn) alone is a
+# collision hazard: CPython reuses addresses after GC, and FnOp equality /
+# plan-cache fingerprints key on the TAG, not the callable. A
+# WeakKeyDictionary keyed by the callable keeps each live callable's serial
+# unique and stable for its lifetime without pinning it; a dead callable's
+# entry vanishes with it, and its serial is never reissued.
+_AUTO_TAG_SERIALS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_AUTO_TAG_COUNTER = itertools.count()
+
+
+def _auto_tag_serial(fn) -> str:
+    """A per-callable token unique across the session (never reused)."""
+    try:
+        serial = _AUTO_TAG_SERIALS.get(fn)
+        if serial is None:
+            serial = next(_AUTO_TAG_COUNTER)
+            _AUTO_TAG_SERIALS[fn] = serial
+        return f"s{serial}"
+    except TypeError:  # not weakref-able: fall back to id + code hash
+        code = getattr(fn, "__code__", None)
+        salt = hash(code.co_code) & 0xFFFFFFFF if code is not None else 0
+        return f"i{id(fn):x}.{salt:x}"
+
+
+def make_fn_op(
+    indices: Sequence[int],
+    fn: Callable,
+    tag: "str | None" = None,
+    self_transpose: bool = False,
+    diagonal: bool = False,
+) -> FnOp:
+    """Validated function op constructor (general form).
+
+    ``fn(row) -> (col, val)``: elementwise over int32 torch tensors,
+    defining matrix entries ``M[row, col] = val`` in the op's big-endian
+    index space — the row -> single-entry orientation of
+    ``make_sparse_matrix_from_function`` (ref matrix_ops.rs:128), but
+    evaluated at apply time, so nothing caps the width below the 31
+    qubits of int32 index arithmetic. ``val`` may be a
+    complex or real tensor or a Python number. ``self_transpose=True``
+    asserts M^T == M (XOR-oracle structure), enabling
+    ``transpose_op``/``invert_op``; ``make_function_op`` sets it for you.
+    ``diagonal=True`` asserts ``fn`` is a phase oracle (``col == row``
+    always): the engine applies it as one elementwise multiply, no
+    gather."""
+    indices = tuple(int(i) for i in indices)
+    if not indices:
+        raise CircuitError("Must supply at least one op index")
+    if len(indices) > 31:
+        raise CircuitError(
+            "FnOp width is capped at 31 qubits (int32 index arithmetic)"
+        )
+    if tag is None:
+        tag = (
+            f"{getattr(fn, '__module__', '?')}."
+            f"{getattr(fn, '__qualname__', '?')}@{_auto_tag_serial(fn)}"
+        )
+    return FnOp(
+        indices, fn, str(tag), False,
+        bool(self_transpose) or bool(diagonal), bool(diagonal),
+    )
+
+
+def make_function_op(
+    x_indices: Sequence[int],
+    y_indices: Sequence[int],
+    f: Callable,
+    tag: "str | None" = None,
+) -> FnOp:
+    """Classical-function oracle |x>|y> -> theta(x) |x>|y XOR f(x)> as a
+    function op (ref ``FunctionOpIterator::new``, qubit_iterators.rs:232-253:
+    x = row >> output_n, (fx, theta) = f(flip_bits(input_n, x)),
+    col = (x << output_n) | (y ^ flip_bits(output_n, fx))).
+
+    ``f(x) -> (fx, theta)`` is elementwise over int32 torch tensors; ``x``
+    and ``fx`` are register VALUES in the little-endian across-the-qubit-
+    list convention (matching init values and measurement outcomes).
+    ``theta`` may be complex (a phase) or 1. XOR structure makes the op its
+    own transpose, so ``invert_op`` works (elementwise conjugate)."""
+    kx = len(tuple(x_indices))
+    ky = len(tuple(y_indices))
+    if kx == 0 or ky == 0:
+        raise CircuitError("Function op needs non-empty input and output")
+
+    def fn(row):
+        x_be = row >> ky
+        y = row & ((1 << ky) - 1)
+        fx, theta = f(flip_bits_traced(kx, x_be))
+        col = (x_be << ky) | (y ^ flip_bits_traced(ky, fx))
+        return col, theta
+
+    if tag is None:
+        tag = (
+            f"xor:{getattr(f, '__module__', '?')}."
+            f"{getattr(f, '__qualname__', '?')}@{_auto_tag_serial(f)}:{kx}:{ky}"
+        )
+    return FnOp(
+        tuple(int(i) for i in x_indices) + tuple(int(i) for i in y_indices),
+        fn,
+        str(tag),
+        False,
+        True,
+    )
+
+
+def fn_values(val, like: torch.Tensor, conjugated: bool = False):
+    """``(vr, vi)`` of an FnOp's values as tensors of ``like``'s dtype and
+    device (``vi`` is None for real values); ``val`` may be a tensor or a
+    Python number."""
+    v = torch.as_tensor(val, device=like.device)
+    if v.is_complex():
+        vi = v.imag.to(like.dtype)
+        return v.real.to(like.dtype), (-vi if conjugated else vi)
+    return v.to(like.dtype), None
+
+
 def make_reflection_op(indices: Sequence[int]) -> ReflectionOp:
     """Validated constructor for ``2|s><s| - I`` on ``indices``."""
     indices = tuple(sorted(int(i) for i in indices))
@@ -319,6 +541,9 @@ def op_fingerprint(op: MatrixOp) -> tuple:
         return ("C", op.n_ctrl, op.indices, op_fingerprint(op.inner))
     if isinstance(op, PhaseProductOp):
         return ("P", op.terms)
+    if isinstance(op, FnOp):
+        return ("F", op.indices, op.tag, op.conjugated,
+                op.self_transpose, op.diagonal)
     if isinstance(op, ReflectionOp):
         return ("R", op.indices)
     raise TypeError(f"Unknown op {op!r}")
@@ -344,6 +569,11 @@ def conj_op(op: MatrixOp) -> MatrixOp:
         return op  # real matrices
     if isinstance(op, ControlOp):
         return ControlOp(op.n_ctrl, op.indices, conj_op(op.inner))
+    if isinstance(op, FnOp):
+        return FnOp(
+            op.indices, op.fn, op.tag, not op.conjugated,
+            op.self_transpose, op.diagonal,
+        )
     raise TypeError(f"Unknown op {op!r}")
 
 
@@ -360,6 +590,14 @@ def transpose_op(op: MatrixOp) -> MatrixOp:
         )
     if isinstance(op, ControlOp):
         return ControlOp(op.n_ctrl, op.indices, transpose_op(op.inner))
+    if isinstance(op, FnOp):
+        if op.self_transpose or op.diagonal:
+            return op
+        raise CircuitError(
+            "Cannot transpose a general function op (the inverse column "
+            "map is not derivable from fn). Use make_function_op (XOR "
+            "oracles are their own transpose) or a SparseOp."
+        )
     raise TypeError(f"Unknown op {op!r}")
 
 
@@ -410,6 +648,23 @@ def op_to_dense(op: MatrixOp) -> np.ndarray:
         return (2.0 / dim) * np.ones((dim, dim), dtype=np.complex128) - np.eye(
             dim, dtype=np.complex128
         )
+    if isinstance(op, FnOp):
+        if k > MAX_SPARSE_BITS:
+            raise CircuitError(
+                f"Cannot materialize a {k}-qubit function op (cap "
+                f"{MAX_SPARSE_BITS}); the apply path needs no "
+                "materialization at any width."
+            )
+        rows = torch.arange(dim, dtype=torch.int32)
+        cols, vals = op.fn(rows)
+        cols = torch.as_tensor(cols).to(torch.int64).expand(dim).numpy()
+        vr, vi = fn_values(vals, rows.double(), op.conjugated)
+        v = vr.expand(dim).numpy().astype(np.complex128)
+        if vi is not None:
+            v = v + 1j * vi.expand(dim).numpy()
+        mat = np.zeros((dim, dim), dtype=np.complex128)
+        mat[np.arange(dim), cols] = v
+        return mat
     raise TypeError(f"Unknown op {op!r}")
 
 

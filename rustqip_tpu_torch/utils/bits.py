@@ -7,7 +7,8 @@ Covers the reference's two util modules:
   ``transpose_sparse``.
 
 These operate on Python ints (circuit-construction time, never traced), so
-they are plain Python. Device-side index math lives in the engine.
+they are plain Python; ``move_bits`` also runs elementwise on numpy arrays
+and torch tensors. Device-side index math lives in the engine.
 """
 
 from __future__ import annotations
@@ -34,6 +35,21 @@ def flip_bits(n: int, num: int) -> int:
     out = 0
     for i in range(n):
         out |= ((num >> i) & 1) << (n - 1 - i)
+    return out
+
+
+def move_bits(x, runs):
+    """Copy runs of bits of ``x``: each ``(src, dst, length)`` moves
+    ``length`` bits from position ``src`` to position ``dst``; every other
+    bit of the result is 0. Elementwise on a Python int, a numpy array or a
+    torch tensor alike.
+
+    >>> move_bits(0b1101, [(2, 0, 2), (0, 4, 1)])
+    19
+    """
+    out = x - x  # zeros of x's type, shape and dtype
+    for src, dst, length in runs:
+        out = out | (((x >> src) & ((1 << length) - 1)) << dst)
     return out
 
 

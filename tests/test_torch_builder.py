@@ -255,14 +255,12 @@ def test_sampling_is_reproducible_from_seed():
 
 
 def test_unported_surfaces_raise():
+    """QASM export (ROADMAP port queue P4) is the builder surface still
+    unported: it raises and names the queue."""
     b = LocalBuilder(device="cpu")
-    r = b.register(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.apply_fn_matrix(r, lambda x: (x, 1))
+    b.h(b.register(2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.to_openqasm()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.apply_function_op(r, r, lambda x: x)
     with pytest.raises(CircuitError):
         b.calculate_state(conditions={0: 1})
 

@@ -113,8 +113,9 @@ def test_probs_plan_matches_reference(indices):
     package's at n = 14."""
     from rustqip_tpu.ops.measurement_ops import _probs_plan as ref_plan
 
-    from rustqip_tpu_torch.ops.measurement_ops import _probs_plan
+    from rustqip_tpu_torch.ops.measurement_ops import _outcome_perm, _probs_plan
 
     got, want = _probs_plan(14, indices), ref_plan(14, indices)
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
-    assert np.array_equal(got[2], want[2]) and got[3:] == want[3:]
+    assert np.array_equal(_outcome_perm(got[2], "cpu").numpy(), want[2])
+    assert got[3:] == want[3:]
