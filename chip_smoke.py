@@ -20,7 +20,11 @@ oracle under a control (``plane_copy`` on the main path) and a 12-qubit
 sparse permutation. ``measure_prob_fn`` sums a 27-qubit subspace on the
 card, and ``soft_measure`` draws all 28 qubits from the traced Grover-28
 register and from a product state whose every qubit has its own known
-probability of 1.
+probability of 1. ``phase_interchange`` exports QFT-28 and Adder-28 to
+OpenQASM and to JSON, imports both on the card and runs them through the
+kernels against the builder-made circuits, profiles and traces QFT-28
+through ``utils/observe.py``, and holds the native C++ CPU engine (built on
+this host) against the card at n = 20.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``), one window per redesigned step kind alone
@@ -40,6 +44,7 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -56,6 +61,10 @@ E2E_TOL = 1e-5  # f32 end to end at n=28 (max abs)
 REPS = 3
 COPY_PER = 20  # copy-floor calls per timed run
 SOFT_DRAWS = 256  # soft_measure draws of the product state
+# phase_interchange's QFT-28 input: every bit set. The QFT applies each
+# controlled phase while its control is still a basis qubit, so a phase
+# acts on the state only where its control's input bit is 1.
+QFT_INPUT = (1 << N_MAIN) - 1
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense): bounds are
 # max(bytes / HBM rate, tensor-core flops / TF32 rate).
 HBM_BYTES_PER_S = 3.35e12
@@ -549,6 +558,9 @@ def phase_main():
         for kernel, names in must_launch.items():
             if name in names and launches[kernel] <= 0:
                 raise AssertionError(f"{name}: the main path launched no {kernel} kernel")
+        if launches["plane_copy"] != (name == "controlled_wide_swap28"):
+            # only a controlled SwapOp with row pairs copies its input
+            raise AssertionError(f"{name}: plane_copy launched {launches['plane_copy']} times")
         ccs[name] = cc
         total.update(launches)
         kind_launches.update(row["kind_launches"])
@@ -785,8 +797,10 @@ def phase_oracles():
         row, launches, ccs[name] = run_circuit(name, builder_circuit(build), check)
         if launches["window_sweep"] <= 0:
             raise AssertionError(f"{name}: the main path launched no window kernel")
-        if name == "controlled_xor_oracle28" and launches["plane_copy"] <= 0:
-            raise AssertionError(f"{name}: the main path launched no plane_copy kernel")
+        if launches["plane_copy"] != 0:
+            # only a controlled SwapOp with row pairs copies its input
+            raise AssertionError(f"{name}: the main path launched plane_copy "
+                                 f"{launches['plane_copy']} times, want 0")
         total.update(launches)
         kinds.update(row["kind_launches"])
         rows.append(row)
@@ -871,7 +885,7 @@ def phase_measure(grover_re, grover_im, solution, p_solution):
         re = torch.outer(re, factor).reshape(-1)
     re = re.to(torch.float32)
     im = torch.zeros_like(re)
-    if M.MULTINOMIAL_MAX >= re.numel():
+    if M.ONE_STAGE_MAX >= re.numel():
         raise AssertionError("soft_measure: 2^28 outcomes would not take the two-stage draw")
     gen = torch.Generator().manual_seed(65)
     torch.cuda.synchronize()
@@ -896,6 +910,231 @@ def phase_measure(grover_re, grover_im, solution, p_solution):
                                    "ms_per_draw": product_ms}})
 
 
+def _native_circuit(n: int, seed: int):
+    """A seeded random op list at ``n`` qubits for the native engine and
+    the card: dense 1- and 2-qubit ops, controlled ops, register swaps and
+    6-qubit reflections."""
+    import numpy as np
+
+    from rustqip_tpu_torch.ops.matrix_ops import (
+        make_control_op,
+        make_matrix_op,
+        make_reflection_op,
+        make_swap_op,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def rand_u(k):
+        m = rng.normal(size=(1 << k, 1 << k)) + 1j * rng.normal(size=(1 << k, 1 << k))
+        return np.linalg.qr(m)[0].reshape(-1)
+
+    ops = []
+    for t in range(40):
+        q = [int(v) for v in rng.choice(n, size=6, replace=False)]
+        kind = t % 5
+        if kind == 0:
+            ops.append(make_matrix_op(q[:1], rand_u(1)))
+        elif kind == 1:
+            ops.append(make_matrix_op(q[:2], rand_u(2)))
+        elif kind == 2:
+            ops.append(make_control_op(q[:2], make_matrix_op(q[2:3], rand_u(1))))
+        elif kind == 3:
+            ops.append(make_swap_op(q[:2], q[2:4]))
+        else:
+            ops.append(make_reflection_op(q))
+    return ops
+
+
+def phase_interchange():
+    """The slice's modules on the card at n = 28: QFT-28 and Adder-28, each
+    of a basis input, exported with ``to_openqasm``, imported with
+    ``circuit_from_qasm`` on the card and run through the window and
+    row-swap kernels, against the builder-made circuits (within 1e-5) and
+    their closed forms (QFT-28 of ``QFT_INPUT``: every amplitude within
+    1e-6 of exp(2 pi i x k / 2^28) / 2^14; Adder-28's exact sum);
+    the same circuits through ``circuit_to_json`` -> ``builder_from_json``
+    (within 1e-7, the same sweep counts); ``observe`` on QFT-28
+    (``pass_breakdown`` against the plan, ``profile_passes`` summed against
+    the kernel path within 15 %, and one run under ``observe.trace`` with
+    the device's busy share of the traced window); then the native CPU
+    engine, built on this host, against the card's kernel path on a seeded
+    random circuit at n = 20. Every kernel-path run is counted (counts
+    zeroed just before, read just after). Returns the launch and step-kind
+    totals."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.algos import add, qfft
+    from rustqip_tpu_torch.engine import cpu_native
+    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine.compile import UnitaryEntry, compile_pipeline
+    from rustqip_tpu_torch.interop import planes_to_numpy
+    from rustqip_tpu_torch.ops.measurement_ops import measure_prob
+    from rustqip_tpu_torch.prelude import LocalBuilder
+    from rustqip_tpu_torch.qasm import circuit_from_qasm
+    from rustqip_tpu_torch.utils import observe, serialize
+
+    n = N_MAIN
+    total, kinds = Counter(), Counter()
+
+    def drive(cc, init=0, initial_state=None):
+        """One counted kernel-path run, then its time (CUDA events)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        re, im, _ = cc.run(init, generator=torch.Generator().manual_seed(7),
+                           initial_state=initial_state)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches["window_sweep"] <= 0:
+            raise AssertionError("interchange: a run launched no window kernel")
+        total.update(launches)
+        kinds.update(wk.KIND_LAUNCHES)
+        counts = cc.sweep_counts()
+        ms = cuda_ms(lambda: cc.run(init, initial_state=initial_state))
+        return (re, im), {"sweeps": sum(counts.values()), "kwindow_sweeps": counts["kwindow"],
+                          "kernel_launches": launches, "kernel_path_ms": ms}
+
+    def diff(a, b):
+        return max((a[0] - b[0]).abs().max().item(), (a[1] - b[1]).abs().max().item())
+
+    def qft_circuit(b):
+        """QFT-28 of a register that holds QFT_INPUT, so that every
+        controlled phase acts and the swaps move distinct amplitudes."""
+        r = b.register(n)
+        qfft(b, r)
+        return [(r, QFT_INPUT)], None
+
+    def qft_err(st, x):
+        """max |amp_k - exp(2 pi i x k / 2^n) / 2^(n/2)| over every state
+        index k (the port's QFT is the DFT on big-endian state indices),
+        from a float64 closed form made on the card in chunks."""
+        size, amp = 1 << n, 2.0 ** (-n / 2)
+        re, im = st[0].reshape(-1), st[1].reshape(-1)
+        err = 0.0
+        for lo in range(0, size, 1 << 24):
+            k = torch.arange(lo, lo + (1 << 24), device="cuda", dtype=torch.int64)
+            ph = ((k * x) % size).to(torch.float64) * (2 * math.pi / size)
+            err = max(err,
+                      (re[lo:lo + k.numel()].double() - amp * torch.cos(ph)).abs().max().item(),
+                      (im[lo:lo + k.numel()].double() - amp * torch.sin(ph)).abs().max().item())
+        return err
+
+    def adder_circuit(b):
+        """rb += ra with carry scratch rc: rc[9], ra[9], rb[10]."""
+        rc, ra, rb = b.register(9), b.register(9), b.register(10)
+        return [(rc, 0), (ra, 389), (rb, 301)], add(b, rc, ra, rb)
+
+    for name, build in (("qft28", qft_circuit), ("adder28_basis", adder_circuit)):
+        b = LocalBuilder(dtype="f32", device="cuda")
+        init, out = build(b)
+        cc = b.compile()
+        ref, ref_row = drive(cc, b.initial_index(init))
+        t0 = time.perf_counter()
+        text = b.to_openqasm()
+        imp = circuit_from_qasm(text, builder=LocalBuilder(dtype="f32", device="cuda"))
+        per_qubit = [(imp.qubits[reg.indices[j]], (val >> j) & 1)
+                     for reg, val in init for j in range(reg.n)]
+        icc = imp.builder.compile()
+        qasm_s = time.perf_counter() - t0
+        got, qasm_row = drive(icc, imp.builder.initial_index(per_qubit))
+        closed = {}
+        if name == "qft28":
+            if qasm_row["kernel_launches"]["row_swap"] <= 0:
+                raise AssertionError("QFT-28 from QASM: no row_swap kernel launched")
+            x = b.initial_index(init)
+            closed = {"input_index": x, "builder_err": qft_err(ref, x),
+                      "qasm_err": qft_err(got, x)}
+            if max(closed["builder_err"], closed["qasm_err"]) > KERNEL_TOL:
+                raise AssertionError(f"QFT-28 of |{x}> against its closed form: {closed}")
+        else:
+            _, ra, rb = out
+            want = _basis_index(n, [(ra, 389), (rb, 690)])
+            for label, st in (("builder", ref), ("QASM", got)):
+                i = int((st[0] ** 2 + st[1] ** 2).reshape(-1).argmax().item())
+                if i != want or abs(st[0].reshape(-1)[i].item() - 1) > E2E_TOL:
+                    raise AssertionError(f"Adder-28 ({label}): 389 + 301 read at index {i}")
+        qasm_diff = diff(got, ref)
+        if qasm_diff > E2E_TOL:
+            raise AssertionError(f"{name}: QASM import vs builder max|diff| {qasm_diff}")
+        del got
+        t0 = time.perf_counter()
+        jb = serialize.builder_from_json(serialize.circuit_to_json(b), dtype="f32",
+                                         device="cuda")
+        jcc = jb.compile()
+        json_s = time.perf_counter() - t0
+        rep, json_row = drive(jcc, jb.initial_index(init))
+        json_diff = diff(rep, ref)
+        if json_diff > 1e-7 or jcc.sweep_counts() != cc.sweep_counts():
+            raise AssertionError(f"{name}: JSON replay max|diff| {json_diff}, sweeps "
+                                 f"{jcc.sweep_counts()} vs {cc.sweep_counts()}")
+        del rep, ref
+        torch.cuda.empty_cache()
+        emit({"phase": "interchange", "circuit": name, "n": n, **closed, "builder": ref_row,
+              "from_qasm": {**qasm_row, "qasm_lines": text.count("\n"),
+                            "export_import_plan_s": qasm_s, "max_abs_diff": qasm_diff},
+              "json_replay": {**json_row, "json_bytes": len(serialize.circuit_to_json(b)),
+                              "load_plan_s": json_s, "max_abs_diff": json_diff}})
+        if name == "qft28":
+            qft_builder, qft_ms = b, ref_row["kernel_path_ms"]
+
+    # observe on QFT-28: the static breakdown against the plan, the measured
+    # per-sweep times against the kernel path, and one traced run.
+    cc = qft_builder.compile()
+    counts = cc.sweep_counts()
+    bd = [e for e in observe.pass_breakdown(qft_builder) if e["kind"] != "measure"]
+    if len(bd) != sum(counts.values()) or sum(e["kernel"] for e in bd) != counts["kwindow"]:
+        raise AssertionError(f"pass_breakdown: {len(bd)} sweeps vs the plan's {counts}")
+    prof = observe.profile_passes(qft_builder, iters=REPS)
+    prof_sum = sum(e["ms"] for e in prof)
+    if abs(prof_sum / qft_ms - 1) > 0.15:
+        raise AssertionError(f"profile_passes: {prof_sum} ms summed vs {qft_ms} ms kernel path")
+    trace_dir = ROOT / "build" / "observe_trace"
+    with observe.trace(str(trace_dir)):
+        cc.run(0)
+    traced = observe.trace_summary(str(trace_dir / "trace.json"))
+    torch.cuda.empty_cache()
+    emit({"phase": "observe", "circuit": "qft28", "n": n, "sweeps": len(bd),
+          "kernel_sweeps": sum(e["kernel"] for e in bd),
+          "profile_passes_ms": [e["ms"] for e in prof], "profile_passes_sum_ms": prof_sum,
+          "kernel_path_ms": qft_ms, "sum_over_kernel_path": prof_sum / qft_ms,
+          "trace": traced})
+
+    # the native CPU engine against the card on one seeded circuit at n = 20
+    n2 = N_PARITY
+    t0 = time.perf_counter()
+    cpu_native.load_library()
+    build_s = time.perf_counter() - t0
+    ops = _native_circuit(n2, 2020)
+    rng = np.random.default_rng(20)
+    v0 = rng.normal(size=1 << n2) + 1j * rng.normal(size=1 << n2)
+    v0 = (v0 / np.linalg.norm(v0)).astype(np.complex64)
+    t0 = time.perf_counter()
+    st = v0
+    for op in ops:
+        st = cpu_native.native_apply_op(n2, op, st)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    ncc = compile_pipeline(n2, [UnitaryEntry(op) for op in ops], np.complex64, device="cuda")
+    card, card_row = drive(ncc, 0, initial_state=v0)
+    native_diff = float(np.abs(planes_to_numpy(*card) - st).max())
+    indices, m = [3, 7, n2 - 1], 0b101
+    p_native = cpu_native.native_measure_prob(n2, m, indices, st)
+    p_card = float(measure_prob(n2, m, indices, *card))
+    if native_diff > E2E_TOL or abs(p_native - p_card) > 1e-6:
+        raise AssertionError(f"native engine vs card: max|diff| {native_diff}, "
+                             f"p {p_native} vs {p_card}")
+    emit({"phase": "native_cpu", "n": n2, "ops": len(ops),
+          "kinds": dict(Counter(type(op).__name__ for op in ops)),
+          "build_and_load_s": build_s, "threads": cpu_native.native_threads(),
+          "compilers": cpu_native.compilers(), "cpu_count": os.cpu_count(),
+          "native_ms": native_ms, "card": card_row, "max_abs_diff": native_diff,
+          "measure_prob": {"indices": indices, "outcome": m, "native": p_native,
+                           "card": p_card}})
+    return total, kinds
+
+
 def phase_window_breakdown(ccs):
     """Each kernel window of QFT-28 and of the gate-form Grover-28
     iteration alone, on a seeded random state: kernel time (median of
@@ -905,6 +1144,7 @@ def phase_window_breakdown(ccs):
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.utils import observe
 
     n = N_MAIN
     g = torch.Generator(device="cuda")
@@ -916,11 +1156,9 @@ def phase_window_breakdown(ccs):
     bound = {"bytes": 0.0, "operations": 0.0}  # QFT-28's windows, by what bounds each
     for name in ("qft28", "grover28_iteration_gate"):
         windows = []
-        for seg in ccs[name].sweeps:
-            for kind, payload, _run in seg:
-                if kind != "kwindow":
-                    continue
-                sg, ksteps, prog = payload
+        for info, plan in observe.sweep_plans(ccs[name]):
+            if info["kernel"]:
+                sg, ksteps, prog = plan[0][1]
                 kr, ki = x[0].clone(), x[1].clone()
                 ms = cuda_ms(lambda: wk.window_sweep(n, kr, ki, sg, ksteps, prog=prog))
                 strip_bytes = (x.shape[1] >> prog.h) * 128 * 4 * 2
@@ -1128,17 +1366,18 @@ def phase_swap_breakdown(ccs):
 
 
 def phase_circuit_breakdown(ccs):
-    """Every sweep and measurement of the kernel-path plans of QPE-28,
-    Shor-28, the traced-oracle Grover-28, the controlled XOR oracle and the
-    wide sparse permutation alone, on a seeded random state: ms by CUDA
-    events (one warm-up, one timed run) and what the sweep is; for a
-    collapsing measurement also the host time of drawing its outcome
-    (``sample_outcome``, host clock)."""
+    """Every sweep of the kernel-path plans of QPE-28, Shor-28, the
+    traced-oracle Grover-28, the controlled XOR oracle and the wide sparse
+    permutation alone, through ``observe.profile_passes`` (CUDA events; one
+    warm-up and one timed run of each sweep, from a seeded random state);
+    then each measurement alone on a seeded state: the device ms of its
+    probability reduction and, for a collapsing one, the host ms of drawing
+    its outcome (``sample_outcome``, host clock)."""
     import torch
 
     from rustqip_tpu_torch.engine.compile import MeasureEntry
-    from rustqip_tpu_torch.engine.real_apply import run_sweeps
     from rustqip_tpu_torch.ops.measurement_ops import measure_probs_ri, sample_outcome
+    from rustqip_tpu_torch.utils import observe
 
     n = N_MAIN
     g = torch.Generator(device="cuda")
@@ -1147,30 +1386,31 @@ def phase_circuit_breakdown(ccs):
     x /= x.norm()
     for name in ("qpe28", "shor28", "traced_grover28", "controlled_xor_oracle28",
                  "wide_sparse_perm28"):
+        cc = ccs[name]
         rows = []
-        for seg in ccs[name].sweeps:
-            if isinstance(seg, MeasureEntry):
-                ms = cuda_ms(lambda: measure_probs_ri(n, seg.indices, x[0], x[1]), reps=1)
-                row = {"sweep": f"measure {len(seg.indices)} qubits", "ms": ms}
-                if not seg.stochastic:
-                    # the outcome is drawn on the host (host clock)
-                    probs = measure_probs_ri(n, seg.indices, x[0], x[1])
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    sample_outcome(probs, torch.Generator().manual_seed(0))
-                    row["host_sample_ms"] = (time.perf_counter() - t0) * 1e3
-                rows.append(row)
+        timed = observe.profile_passes(cc, iters=1, seed=22)
+        for (info, plan), row in zip(observe.sweep_plans(cc), timed):
+            kind, payload, run = plan[0]
+            if kind == "kwindow":
+                what = "kwindow h=%d %s" % (payload[2].h, "+".join(payload[2].kinds))
+            elif kind == "op":
+                what = "op %s on %d qubits" % (info["kind"], len(run[0].indices))
+            else:
+                what = "window"
+            rows.append({"sweep": what, "gates": info["ops"], "ms": row["ms"]})
+        for seg in cc.sweeps:
+            if not isinstance(seg, MeasureEntry):
                 continue
-            for sweep in seg:
-                kind, payload, run = sweep
-                if kind == "kwindow":
-                    what = "kwindow h=%d %s" % (payload[2].h, "+".join(payload[2].kinds))
-                elif kind == "op":
-                    what = "op %s on %d qubits" % (type(payload).__name__, len(run[0].indices))
-                else:
-                    what = "window"
-                ms = cuda_ms(lambda: run_sweeps(n, [sweep], x[0], x[1]), reps=1)
-                rows.append({"sweep": what, "gates": len(run), "ms": ms})
+            ms = cuda_ms(lambda: measure_probs_ri(n, seg.indices, x[0], x[1]), reps=1)
+            row = {"sweep": f"measure {len(seg.indices)} qubits", "ms": ms}
+            if not seg.stochastic:
+                probs = measure_probs_ri(n, seg.indices, x[0], x[1])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sample_outcome(probs, torch.Generator().manual_seed(0))
+                row["host_sample_ms"] = (time.perf_counter() - t0) * 1e3
+            rows.append(row)
+        torch.cuda.empty_cache()
         emit({"phase": "circuit_breakdown", "circuit": name, "n": n,
               "ms_sum": sum(r["ms"] for r in rows), "sweeps": rows})
 
@@ -1252,6 +1492,9 @@ def main() -> int:
     kind_launches = dict(Counter(kind_launches) + oracle_kinds)
     phase_measure(g_re, g_im, solution, p_solution)
     del g_re, g_im
+    inter_launches, inter_kinds = phase_interchange()
+    launches = {k: launches[k] + inter_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + inter_kinds)
     kms, pms, qft_err, bound = phase_window_breakdown(ccs)
     step_err = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)

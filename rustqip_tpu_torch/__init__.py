@@ -13,7 +13,13 @@ Layer map (the JAX package's, path for path):
   builder/   L2  LocalBuilder, registers, conditioning, inverter
   dsl/       L3  program, invertible, ops
   algos/     L4  qfft, arithmetic, grover, phase estimation, shor
+  qasm/          OpenQASM 2.0 export and import
+  utils/         bit math, serialization (JSON), observability (profilers,
+                 torch.profiler trace)
   interop.py     ops and states to and from the JAX package (duck-typed)
+
+The native C++ CPU engine (``engine/cpu_native.py``, ``csrc/qip_engine.cpp``)
+is an oracle independent of torch and the CPU baseline.
 """
 
 from rustqip_tpu_torch.errors import CircuitError

@@ -826,9 +826,14 @@ class LocalBuilder(
 
     # -- QASM export -----------------------------------------------------------
     def to_openqasm(self) -> str:
-        raise NotImplementedError(
-            "QASM export is not ported yet: ROADMAP port queue item P4"
-        )
+        from rustqip_tpu_torch.qasm.export import to_openqasm
+
+        return to_openqasm(self)
+
+    def write_openqasm_file(self, path) -> None:
+        from rustqip_tpu_torch.qasm.export import write_openqasm_file
+
+        write_openqasm_file(self, path)
 
 
 def apply_pipeline_items(cb, sc: List[PipelineItem], r: Register) -> Register:

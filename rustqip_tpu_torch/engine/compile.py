@@ -173,6 +173,28 @@ class CompiledCircuit:
             return ("repeat", seg[1], sweeps)
         return sweeps
 
+    @property
+    def num_passes(self) -> int:
+        """Executed gate passes after fusion (circuit stats), repeat bodies
+        counted once per repetition (JAX ``compile.py``:295)."""
+        total = 0
+        for s in self.segments:
+            if isinstance(s, MeasureEntry):
+                continue
+            if isinstance(s, tuple):
+                total += s[1] * len(s[2])
+            else:
+                total += len(s)
+        return total
+
+    @property
+    def num_sweeps(self) -> int:
+        """Executed state sweeps (read + write of the planes): the sweeps of
+        this circuit's own plan, with its admission and kernel policy, so
+        it is what ``run`` executes (JAX ``compile.py``:308 counts the
+        plain window collection; ``num_passes`` counts fused gate ops)."""
+        return sum(self.sweep_counts().values())
+
     def sweep_counts(self) -> Dict[str, int]:
         """Executed sweeps by kind ("kwindow"/"window"/"op"), repeat
         bodies counted once per repetition."""

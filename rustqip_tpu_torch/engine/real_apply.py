@@ -159,12 +159,13 @@ def _control_ri(n: int, op: ControlOp, re, im) -> Pair:
     if op.num_indices <= DENSE_CAP:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im)
     _, R, C = _geometry(n)
-    # The inner op may update its planes in place (a row swap on CUDA), and
-    # the select below reads the input again: the inner op gets copies
-    # (also for a gather op, which only reads them: one rule for all).
-    in_r, in_i = apply_op_ri(
-        n, op.inner, *copy_probe.plane_copy(re.contiguous(), im.contiguous())
-    )
+    # The select below reads the input again. Only an inner SwapOp whose row
+    # pairs run the row-swap kernel (CUDA) updates its planes in place, so
+    # only it gets copies; every other inner op returns fresh planes.
+    inner_in = (re, im)
+    if isinstance(op.inner, SwapOp) and re.is_cuda and _swap_schedule(n, op.inner)[1]:
+        inner_in = copy_probe.plane_copy(re.contiguous(), im.contiguous())
+    in_r, in_i = apply_op_ri(n, op.inner, *inner_in)
     mask = _control_mask_2d(n, op.control_indices, R, C, re.device)
     return (
         torch.where(mask, in_r.reshape(R, C), re.reshape(R, C)),

@@ -328,17 +328,22 @@ def _np_dtype(x: torch.Tensor):
     return np.float32 if x.dtype == torch.float32 else np.float64
 
 
-#: Most categories one ``torch.multinomial`` draw takes.
-MULTINOMIAL_MAX = 1 << 24
+#: Most outcomes drawn in one stage: a larger distribution is not copied to
+#: the host whole.
+ONE_STAGE_MAX = 1 << 16
 
 
 def sample_outcome(probs: torch.Tensor, generator: torch.Generator) -> int:
-    """Draw one outcome index from a (2^k,) distribution. Above
-    ``MULTINOMIAL_MAX`` outcomes the draw is exact in two stages: a block
-    from the block sums (reduced where ``probs`` lives), then an outcome
-    within that block (2^ceil(k/2) outcomes a block)."""
+    """Draw one outcome index from a (2^k,) distribution with a CPU
+    ``generator``. Up to ``ONE_STAGE_MAX`` outcomes the host draws from the
+    whole distribution in float64. Above it the draw is exact in two
+    stages, on every device alike: a block from the block sums (reduced in
+    float64 where ``probs`` lives), then an outcome within that block
+    (2^ceil(k/2) outcomes a block), so the host reads two vectors of about
+    2^(k/2) entries and a seed gives the same outcome on the CPU and the
+    card."""
     p = probs.detach().reshape(-1)
-    if p.numel() <= MULTINOMIAL_MAX:
+    if p.numel() <= ONE_STAGE_MAX:
         p = p.to("cpu", torch.float64).clamp_min(0)
         return int(torch.multinomial(p, 1, generator=generator).item())
     k = p.numel().bit_length() - 1

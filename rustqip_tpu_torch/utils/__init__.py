@@ -1,4 +1,6 @@
-"""Bit-math utilities (port of ``rustqip_tpu/utils/bits.py``)."""
+"""Utility subpackage (port of ``rustqip_tpu/utils/``): bit math here;
+``serialize`` (JSON circuits, state snapshots) and ``observe`` (statistics,
+profilers, trace) are imported as modules."""
 
 from rustqip_tpu_torch.utils.bits import (
     entwine_bits,

@@ -8,9 +8,9 @@ since a classical reversible circuit permutes basis states, amplitude
 ``k + 1`` ends on exactly one basis state: row ``k``'s output. The JAX
 package's harness ``vmap``s its compiled circuit over the same initial
 indices. Both are held to the classical semantics and to each other; for
-``exp_mod`` (whose JAX compile is the slowest of the suite) the port's
-lowered pipeline is held op for op against the JAX package's instead of
-running the JAX circuit again.
+``times_mod``, ``square_mod`` and ``exp_mod`` (whose JAX compiles are the
+slowest of the suite) the port's lowered pipeline is held op for op
+against the JAX package's instead of running the JAX circuit again.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import torch  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -31,6 +32,8 @@ from rustqip_tpu_torch.errors import CircuitError  # noqa: E402
 from rustqip_tpu_torch.interop import op_from_reference  # noqa: E402
 from rustqip_tpu_torch.ops.matrix_ops import op_fingerprint  # noqa: E402
 from rustqip_tpu_torch.prelude import LocalBuilder as TBuilder  # noqa: E402
+
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
 
 
 def decode(n, state_index, reg):
@@ -169,6 +172,16 @@ CASES = {
 }
 
 
+#: Cases whose JAX circuit is not run: their lowered pipelines are compared.
+OPS_ONLY = ("times_mod", "square_mod")
+
+
+def _pipeline_fingerprints(b, lower, convert):
+    return [
+        op_fingerprint(convert(e.op)) for item in b.pipeline for e in lower(item)
+    ]
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_truth_table_matches_jax_and_semantics(name):
     build, rows, expected = CASES[name]
@@ -178,13 +191,11 @@ def test_truth_table_matches_jax_and_semantics(name):
     j_in, j_out = build(jalgos, jb)
     got = port_truth_table(tb, t_in, rows, t_out)
     assert got == [expected(r) for r in rows]
-    assert got == jax_truth_table(jb, j_in, rows, j_out)
-
-
-def _pipeline_fingerprints(b, lower, convert):
-    return [
-        op_fingerprint(convert(e.op)) for item in b.pipeline for e in lower(item)
-    ]
+    if name in OPS_ONLY:
+        assert _pipeline_fingerprints(tb, t_lower, lambda op: op) == (
+            _pipeline_fingerprints(jb, j_lower, op_from_reference))
+    else:
+        assert got == jax_truth_table(jb, j_in, rows, j_out)
 
 
 @pytest.mark.parametrize(

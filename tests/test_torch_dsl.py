@@ -10,6 +10,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import torch  # noqa: E402
 import rustqip_tpu.dsl as jdsl  # noqa: E402
 from rustqip_tpu.prelude import LocalBuilder as JBuilder  # noqa: E402
 from rustqip_tpu.prelude import make_circuit_matrix as j_matrix  # noqa: E402
@@ -18,6 +19,8 @@ import rustqip_tpu_torch.dsl as tdsl  # noqa: E402
 from rustqip_tpu_torch.prelude import CircuitError  # noqa: E402
 from rustqip_tpu_torch.prelude import LocalBuilder as TBuilder  # noqa: E402
 from rustqip_tpu_torch.prelude import make_circuit_matrix as t_matrix  # noqa: E402
+
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
 
 TOL = 1e-10
 

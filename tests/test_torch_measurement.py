@@ -19,6 +19,8 @@ from rustqip_tpu.ops import measurement_ops as RM  # noqa: E402
 from rustqip_tpu_torch.interop import planes_from_numpy  # noqa: E402
 from rustqip_tpu_torch.ops import measurement_ops as M  # noqa: E402
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 
 def _state(n, seed):
     rng = np.random.default_rng(seed)
@@ -142,9 +144,9 @@ def test_soft_measure_distribution(monkeypatch, split):
     """soft_measure draws from the same outcome distribution as the JAX
     package's (its measure_probs); 8000 draws agree with it within 5
     sigma per outcome, with one multinomial draw and with the two-stage
-    draw used above 2^24 outcomes."""
+    draw used above 2^16 outcomes."""
     if split:
-        monkeypatch.setattr(M, "MULTINOMIAL_MAX", 4)
+        monkeypatch.setattr(M, "ONE_STAGE_MAX", 4)
     n = 5
     v = _state(n, 12)
     indices = [4, 0, 2]
@@ -167,3 +169,58 @@ def test_measure_prob_fn_device_tier_raises_without_the_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         M.measure_prob_fn(4, 0, [0], lambda i: torch.ones(i.shape) / 4, device="cuda")
+
+
+def _sparse_distribution(k, support, seed):
+    """A (2^k,) float64 distribution on ``support`` outcomes spread over
+    the blocks of the two-stage draw (some share a block), with dyadic
+    weights: exact in float32 and float64 alike."""
+    rng = np.random.default_rng(seed)
+    outcomes = np.unique(np.concatenate([
+        rng.choice(1 << k, size=support - 8, replace=False),
+        (rng.integers(0, 1 << k) & ~0xFF) + np.arange(8)]))
+    weights = rng.integers(16, 64, size=outcomes.size).astype(np.float64)
+    p = np.zeros(1 << k)
+    p[outcomes] = weights
+    total = 1 << int(np.ceil(np.log2(weights.sum())))
+    p[outcomes[0]] += total - weights.sum()  # dyadic total: p sums to 1 exactly
+    return torch.as_tensor(p / total), outcomes
+
+
+def test_two_stage_draw_above_2_16_holds_chi_square():
+    """2^17 outcomes take the two-stage draw; 1000 draws from a 16-point
+    distribution (every expected count above 15) land only on its support
+    and pass a chi-square test at the 1e-4 level."""
+    from scipy.stats import chi2
+
+    k = 17
+    assert (1 << k) > M.ONE_STAGE_MAX
+    probs, support = _sparse_distribution(k, 16, seed=9)
+    gen = torch.Generator().manual_seed(17)
+    draws = 1000
+    counts = np.bincount([M.sample_outcome(probs, gen) for _ in range(draws)],
+                         minlength=1 << k)
+    assert counts.sum() == counts[support].sum() == draws
+    want = draws * probs.numpy()[support]
+    stat = float(((counts[support] - want) ** 2 / want).sum())
+    assert stat < chi2.ppf(1 - 1e-4, support.size - 1)
+
+
+def test_two_stage_draw_is_one_rule_for_a_seed():
+    """A seed gives the same outcomes whatever the distribution's dtype
+    (the host reads float64 block sums and one block either way), and they
+    are the block-then-offset draw written out by hand: 2^9 block sums of
+    2^9 outcomes each at k = 18."""
+    k = 18
+    probs, _ = _sparse_distribution(k, 24, seed=4)
+    width = 1 << ((k + 1) // 2)
+    blocks = probs.reshape(-1, width)
+    g_hand = torch.Generator().manual_seed(5)
+    want = []
+    for _ in range(32):
+        b = int(torch.multinomial(blocks.sum(dim=1), 1, generator=g_hand))
+        want.append(b * width + int(torch.multinomial(blocks[b], 1, generator=g_hand)))
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator().manual_seed(5)
+        got = [M.sample_outcome(probs.to(dtype), gen) for _ in range(32)]
+        assert got == want

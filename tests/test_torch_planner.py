@@ -18,6 +18,8 @@ import pytest
 
 pytest.importorskip("jax")
 
+import torch  # noqa: E402
+
 from rustqip_tpu.engine import pallas_kernels as ref_pk  # noqa: E402
 from rustqip_tpu.engine import real_apply as ref_ra  # noqa: E402
 
@@ -30,6 +32,8 @@ from rustqip_tpu_torch.engine.admission import (  # noqa: E402
 from rustqip_tpu_torch.engine.parity_windows import build_sequences  # noqa: E402
 from rustqip_tpu_torch.interop import ops_from_reference  # noqa: E402
 from rustqip_tpu_torch.ops.matrix_ops import op_fingerprint, op_to_dense  # noqa: E402
+
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,8 @@ from rustqip_tpu_torch.interop import (  # noqa: E402
     planes_to_numpy,
 )
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 TOL = {"f64": 1e-10, "f32": 1e-6}
 
 

@@ -29,6 +29,8 @@ from rustqip_tpu_torch.interop import (  # noqa: E402
 from rustqip_tpu_torch.ops import matrix_ops as P  # noqa: E402
 from rustqip_tpu_torch.types import Representation  # noqa: E402
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 F64, F32 = 1e-10, 1e-5
 
 

@@ -1,10 +1,11 @@
 """The window kernel's plain torch version against the JAX package's Pallas
 kernel in interpret mode (n=16, one window per step kind, the same kernel
-steps fed to both), and the port's kernel path against the JAX package's
-per-op engine on the ten parity windows (n=20). Tolerance: 1e-6 max abs on
-normalized f32 states (``scripts/kernel_parity.py``). The CUDA kernel
-itself is checked against the plain version by ``test_torch_gpu.py``,
-which skips without a card, and by ``chip_smoke.py``."""
+steps fed to both), the diag encoding, the wrapper's CPU contract and the
+encoded program. The kernel path on the parity windows is in
+``test_torch_window_parity.py``. Tolerance: 1e-6 max abs on normalized f32
+states (``scripts/kernel_parity.py``). The CUDA kernel itself is checked
+against the plain version by ``test_torch_gpu.py``, which skips without a
+card, and by ``chip_smoke.py``."""
 
 import numpy as np
 import pytest
@@ -20,20 +21,12 @@ from rustqip_tpu.engine import real_apply as ref_ra  # noqa: E402
 from rustqip_tpu_torch.engine import window_kernel as wk  # noqa: E402
 from rustqip_tpu_torch.engine.admission import (  # noqa: E402
     HopperSmemAdmission,
-    TpuReferenceAdmission,
     window_seg_sizes,
 )
-from rustqip_tpu_torch.engine.parity_windows import (  # noqa: E402
-    build_sequences,
-    lowr_sequence,
-    rand_u,
-    step_windows,
-)
-from rustqip_tpu_torch.engine.real_apply import (  # noqa: E402
-    apply_ops_ri,
-    compile_sweeps,
-)
+from rustqip_tpu_torch.engine.parity_windows import rand_u, step_windows  # noqa: E402
 from rustqip_tpu_torch.interop import planes_from_numpy, planes_to_numpy  # noqa: E402
+
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
 
 N = 16  # row qubits 0..8 (row bits 8..0), lane qubits 9..15
 TOL = 1e-6
@@ -227,50 +220,6 @@ def test_matrix_operands_reach_the_kernel_as_b():
     assert prog.smem_bytes <= 232448
 
 
-PARITY = build_sequences(20) + [lowr_sequence(20)]
-
-
-@pytest.mark.parametrize("idx", range(len(PARITY)), ids=[s[0] for s in PARITY])
-def test_parity_window_kernel_path_matches_reference_engine(idx):
-    """The port's kernel path (kwindows through the plain version on the
-    CPU) against the JAX package's per-op engine, at n=20."""
-    name, ops, expected = PARITY[idx]
-    n = 20
-    ref_ops = _to_reference(ops)
-    v = _state(n, 2)
-    er = jnp.asarray(v.real)
-    ei = jnp.asarray(v.imag)
-    for op in ref_ops:
-        er, ei = ref_ra.apply_op_ri(n, op, er, ei)
-    want = np.asarray(er) + 1j * np.asarray(ei)
-    sweeps = compile_sweeps(n, ops, True, TpuReferenceAdmission())
-    assert all(k == "kwindow" for k, _, _ in sweeps), name
-    pr, pi = planes_from_numpy(v)
-    gr, gi = apply_ops_ri(n, ops, pr, pi, kernel_ok=True,
-                          admission=TpuReferenceAdmission())
-    assert np.abs(planes_to_numpy(gr, gi) - want).max() <= TOL
-
-
-def _to_reference(ops):
-    """Port ops -> the JAX package's ops (the parity windows only use
-    dense, control and phase-product ops)."""
-    from rustqip_tpu.ops import matrix_ops as R
-
-    out = []
-    for op in ops:
-        kind = type(op).__name__
-        if kind == "DenseOp":
-            out.append(R.make_matrix_op(op.indices, op.data.reshape(-1)))
-        elif kind == "ControlOp":
-            inner = _to_reference([op.inner])[0]
-            out.append(R.make_control_op(op.control_indices, inner))
-        elif kind == "PhaseProductOp":
-            out.append(R.PhaseProductOp(op.terms))
-        else:
-            raise TypeError(kind)
-    return out
-
-
 def test_wrapper_cpu_contract():
     """On a CPU state the wrapper is the plain version and counts no
     launch; it refuses what the kernel does not take."""
@@ -336,25 +285,3 @@ def test_encoded_program_layout():
     assert prog.in_mask == prog.out_mask == 0b11
     assert prog.bt == min(64, seg[-1])
     assert HopperSmemAdmission().block_rows(1, ksteps, seg[-1]) == prog.bt
-
-
-@pytest.mark.parametrize("hq", [(), (0,), (1, 4), (0, 2, 3), (2, 3, 5, 6)])
-def test_strip_addressing_matches_reference(hq):
-    """The CUDA kernel finds each CTA's rows by the formula of the ported
-    ``_strip_index_map`` (the same as the reference's); the plain version
-    takes the strips as reshape views. Both must name the same rows."""
-    n = 16
-    seg = tuple(window_seg_sizes(n, hq))
-    prog = wk.encode_window(n, seg, [("low", np.eye(128))])
-    bt = prog.bt
-    sl = seg[-1] // bt
-    rows = wk._strip_rows(prog, "cpu")
-    for i in range(1 << len(hq)):
-        port_map = wk._strip_index_map(seg, sl, i)
-        ref_map = ref_pk._strip_index_map(seg, sl, i)
-        for r in range(len(rows[i]) // bt):
-            assert port_map(r) == ref_map(r)
-            start = port_map(r)[0] * bt
-            assert rows[i][r * bt : (r + 1) * bt].tolist() == list(
-                range(start, start + bt)
-            )
