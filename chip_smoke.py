@@ -24,7 +24,10 @@ probability of 1. ``phase_interchange`` exports QFT-28 and Adder-28 to
 OpenQASM and to JSON, imports both on the card and runs them through the
 kernels against the builder-made circuits, profiles and traces QFT-28
 through ``utils/observe.py``, and holds the native C++ CPU engine (built on
-this host) against the card at n = 20.
+this host) against the card at n = 20. ``phase_sharded`` splits 28-qubit
+states into eight shards on this one card (``parallel/``) and runs the
+paths of the JAX package's multi-device dry run through the explicit and
+the kernel-off executors, each against the single-device kernel path.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``), one window per redesigned step kind alone
@@ -1008,19 +1011,7 @@ def phase_interchange():
         return [(r, QFT_INPUT)], None
 
     def qft_err(st, x):
-        """max |amp_k - exp(2 pi i x k / 2^n) / 2^(n/2)| over every state
-        index k (the port's QFT is the DFT on big-endian state indices),
-        from a float64 closed form made on the card in chunks."""
-        size, amp = 1 << n, 2.0 ** (-n / 2)
-        re, im = st[0].reshape(-1), st[1].reshape(-1)
-        err = 0.0
-        for lo in range(0, size, 1 << 24):
-            k = torch.arange(lo, lo + (1 << 24), device="cuda", dtype=torch.int64)
-            ph = ((k * x) % size).to(torch.float64) * (2 * math.pi / size)
-            err = max(err,
-                      (re[lo:lo + k.numel()].double() - amp * torch.cos(ph)).abs().max().item(),
-                      (im[lo:lo + k.numel()].double() - amp * torch.sin(ph)).abs().max().item())
-        return err
+        return qft_closed_err([st[0]], [st[1]], n, x)
 
     def adder_circuit(b):
         """rb += ra with carry scratch rc: rc[9], ra[9], rb[10]."""
@@ -1133,6 +1124,314 @@ def phase_interchange():
           "measure_prob": {"indices": indices, "outcome": m, "native": p_native,
                            "card": p_card}})
     return total, kinds
+
+
+SHARDS = 8  # phase_sharded's mesh: eight shards of one state on cuda:0
+
+
+def qft_closed_err(res, ims, n, x):
+    """max |amp_k - exp(2 pi i x k / 2^n) / 2^(n/2)| over every state index
+    k (the port's QFT is the DFT on big-endian state indices), from a
+    float64 closed form made on the card in chunks. ``res``/``ims`` are
+    plane lists whose concatenation is the state (one plane, or the shards
+    in shard order)."""
+    import math
+
+    import torch
+
+    size, amp = 1 << n, 2.0 ** (-n / 2)
+    re = torch.cat([r.reshape(-1) for r in res]) if len(res) > 1 else res[0].reshape(-1)
+    im = torch.cat([i.reshape(-1) for i in ims]) if len(ims) > 1 else ims[0].reshape(-1)
+    err = 0.0
+    for lo in range(0, size, 1 << 24):
+        k = torch.arange(lo, min(size, lo + (1 << 24)), device=re.device, dtype=torch.int64)
+        ph = ((k * x) % size).to(torch.float64) * (2 * math.pi / size)
+        err = max(err,
+                  (re[lo:lo + k.numel()].double() - amp * torch.cos(ph)).abs().max().item(),
+                  (im[lo:lo + k.numel()].double() - amp * torch.sin(ph)).abs().max().item())
+    return err
+
+
+def phase_sharded():
+    """The sharded state vector (``parallel/``) at n = 28 in float32 on
+    eight shards of one state, all on cuda:0 (g = 3 shard bits, 25 local
+    qubits, 2^18 rows a shard), through the paths of the JAX package's
+    multi-device dry run: the dry run's circuit through
+    ``strategy="gspmd"`` and the default ``"auto"`` (20 of its qubits,
+    three of them shard bits, measured stochastically); one op sequence
+    through ``apply_sharded_ops`` (local H, global H, global-control
+    CNOT, a seam swap, a local control on a global target, a 28-qubit XOR
+    ``FnOp`` that takes the ``gex`` exchange), the same with ``chunks=2``;
+    the ``gex`` XOR-flip case at n = g + 5; the three reflections (full,
+    grouped, controlled); a window-shaped local run; Grover-28 (native
+    diffusion, 3 rounds) as a repeat block; QFT-28 of the basis state with
+    every bit set (held also to its closed form within 1e-6); and a
+    collapse forced on a global and on a local qubit. Every result is
+    held within ``E2E_TOL`` of the single-device kernel path of the same
+    circuit, and both are timed (CUDA events, median of 3 after a
+    warm-up). The window kernel's launches are counted per path: the
+    explicit paths launch it, ``strategy="gspmd"`` never does. Returns
+    the launch and step-kind totals."""
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.algos import grover_iteration, qfft
+    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine.admission import HOPPER
+    from rustqip_tpu_torch.engine.real_apply import compile_sweeps, plan_sweeps, run_sweeps
+    from rustqip_tpu_torch.ops import gates
+    from rustqip_tpu_torch.ops.matrix_ops import (
+        make_control_op,
+        make_fn_op,
+        make_matrix_op,
+        make_reflection_op,
+        make_swap_op,
+    )
+    from rustqip_tpu_torch.parallel import (
+        compile_sharded,
+        compile_sharded_explicit,
+        make_shard_mesh,
+        sharded_calculate_state,
+    )
+    from rustqip_tpu_torch.parallel.shard_ops import (
+        _lower_schedule,
+        compile_sharded_ops,
+        make_sharded_pair,
+    )
+    from rustqip_tpu_torch.builder.builder import _lower_item
+    from rustqip_tpu_torch.prelude import LocalBuilder
+
+    n, d = N_MAIN, SHARDS
+    g = d.bit_length() - 1
+    mesh = make_shard_mesh(d, devices=["cuda:0"] * d)
+    total, kinds = Counter(), Counter()
+
+    def shard_diff(shards, single):
+        """max |sharded - single| of the planes, shard by shard."""
+        (sr, si), (re, im) = shards, single
+        rows = sr[0].shape[0]
+        re, im = re.reshape(d, rows, -1), im.reshape(d, rows, -1)
+        return max(max((a - re[k]).abs().max().item(), (b - im[k]).abs().max().item())
+                   for k, (a, b) in enumerate(zip(sr, si)))
+
+    def counted(fn):
+        """``fn()`` with every launch count zeroed just before and read just
+        after; returns its result and the window kernel's launches."""
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total.update(launches)
+        kinds.update(wk.KIND_LAUNCHES)
+        return out, launches
+
+    def report(path, err, launches, sharded_ms, single_ms, **extra):
+        if err > E2E_TOL:
+            raise AssertionError(f"sharded {path}: max|sharded - single| {err}")
+        emit({"phase": "sharded", "path": path, "n": n, "shards": d,
+              "max_abs_diff_vs_single": err, "kernel_launches": launches,
+              "sharded_ms": sharded_ms, "single_device_ms": single_ms, **extra})
+
+    def entries_of(b):
+        return [e for item in b.pipeline for e in _lower_item(item)]
+
+    def basis(nq, index):
+        """A basis state as one device's (R, 128) planes."""
+        re = torch.zeros(1 << nq, device="cuda")
+        re[index] = 1.0
+        re = re.reshape(-1, min(1 << nq, 128))
+        return re, torch.zeros_like(re)
+
+    # (1) the dry run's circuit, through strategy="gspmd" and "auto".
+    def dryrun_build(b):
+        r = b.register(n)
+        qs = b.split_all_register(r)
+        qs[0] = b.h(qs[0])                       # global (shard) qubit
+        qs[0], qs[-1] = b.cnot(qs[0], qs[-1])    # global -> local exchange
+        qs[1], qs[-2] = b.swap(qs[1], qs[-2])    # across the shard seam
+        for _ in range(2):                       # strip-window shape
+            qs[0] = b.h(qs[0])
+            qs[-1] = b.h(qs[-1])
+        r = qfft(b, b.merge_registers(qs))
+        qs = b.split_all_register(r)
+        return b.measure_stochastic(b.merge_registers(qs[:10] + qs[-10:]))[1]
+
+    b1 = LocalBuilder(dtype="f32", device="cuda")
+    h1 = dryrun_build(b1)
+    cc1 = b1.compile()
+    re1, im1, res1 = cc1.run(0)
+    single_ms = cuda_ms(lambda: cc1.run(0))
+    for strategy, compiler in (("gspmd", compile_sharded), ("auto", compile_sharded_explicit)):
+        b = LocalBuilder(dtype="f32", device="cuda")
+        h = dryrun_build(b)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        (sr, si, meas), launches = counted(
+            lambda: sharded_calculate_state(b, mesh=mesh, generator=gen, strategy=strategy))
+        err = max(shard_diff((sr, si), (re1, im1)),
+                  float(np.abs(meas.get_stochastic_measurement(h)
+                               - res1[0].cpu().numpy()).max()))
+        if strategy == "gspmd" and launches["window_sweep"] != 0:
+            raise AssertionError(f"gspmd launched the window kernel {launches['window_sweep']} times")
+        if strategy == "auto" and launches["window_sweep"] <= 0:
+            raise AssertionError("auto (explicit) launched no window kernel")
+        cc = compiler(n, entries_of(b), b.dtype, mesh)
+        counts = cc.sweep_counts()
+        report(f"dryrun_{strategy}", err, launches, cuda_ms(lambda: cc.run(0)), single_ms,
+               sweeps=counts)
+        del sr, si, meas, cc
+    del re1, im1, res1, cc1
+    torch.cuda.empty_cache()
+
+    # (2, 3) the dry run's op sequence through apply_sharded_ops, whole and
+    # with chunks=2; (5) the three reflections; (6) a window-shaped run.
+    def xor_oracle(row):
+        # |x>|y> -> |x>|y ^ f(x)>, x the top n-2 bits: spans every qubit,
+        # so the globals can never relocate: the gex exchange.
+        return row ^ (((row >> 2) * 5 + 1) & 3), torch.ones((), device=row.device)
+
+    H, X, T = (m.reshape(-1) for m in (gates.H, gates.X, gates.T))
+    seq = [
+        make_matrix_op([n - 1], H),                          # local qubit
+        make_matrix_op([0], H),                              # global qubit
+        make_control_op([0], make_matrix_op([n - 1], X)),    # global control
+        make_swap_op([1], [n - 2]),                          # seam swap
+        make_control_op([n - 2], make_matrix_op([0], X)),    # global target
+        make_fn_op(list(range(n)), xor_oracle, tag="sharded-xor-28", self_transpose=True),
+    ]
+    refl = [make_matrix_op([0], H), make_matrix_op([n - 1], H),
+            make_reflection_op(range(n)), make_reflection_op([1, n - 1]),
+            make_control_op([n - 1], make_reflection_op([0, 2]))]
+    window = [make_matrix_op([g], H), make_matrix_op([n - 1], H),
+              make_matrix_op([g], H), make_matrix_op([n - 1], T)]
+    local = [make_matrix_op([q - g for q in op.indices], op.data) for op in window]
+    local_kinds = sorted({k for k, _, _ in plan_sweeps(n - g, local, True, HOPPER)})
+    if "kwindow" not in local_kinds:
+        raise AssertionError(f"window-shaped local run planned {local_kinds}")
+    if [k for k, *_ in _lower_schedule(n, g, refl[2:])] != ["reflect"] * 3:
+        raise AssertionError("the reflections did not lower to grouped sums")
+    seq_kinds = [k for k, *_ in _lower_schedule(n, g, seq)]
+    if "gex" not in seq_kinds:
+        raise AssertionError(f"the 28-qubit XOR oracle lowered to {seq_kinds}")
+    for path, ops, chunks, init in (
+        ("ops_sequence", seq, 1, 1),
+        ("ops_sequence_chunks2", seq, 2, 1),
+        ("reflections", refl, 1, 1),
+        ("window_local_run", window, 1, 1),
+    ):
+        sched = compile_sharded_ops(mesh, n, ops, kernel_ok=True, chunks=chunks)
+        (sr, si), launches = counted(
+            lambda: sched.run(*make_sharded_pair(mesh, n, init)))
+        if launches["window_sweep"] <= 0:
+            raise AssertionError(f"sharded {path} launched no window kernel")
+        sweeps = compile_sweeps(n, ops, True, HOPPER, "cuda")
+        single = run_sweeps(n, sweeps, *basis(n, init))
+        err = shard_diff((sr, si), single)
+        del sr, si, single
+        buf = make_sharded_pair(mesh, n, init)
+        sharded_ms = cuda_ms(lambda: sched.run(*buf))
+        one = basis(n, init)
+        single_ms = cuda_ms(lambda: run_sweeps(n, sweeps, *one))
+        report(path, err, launches, sharded_ms, single_ms,
+               schedule=[e[0] for e in sched.sched], chunks=chunks,
+               local_plan_kinds=local_kinds if path == "window_local_run" else None)
+        del buf, one
+        torch.cuda.empty_cache()
+
+    # (4) the gex XOR-flip case: globals outnumber the free local slots
+    # and the oracle touches 3 local bits. Its shards hold 32 amplitudes, too
+    # few rows for a kernel window, so it is the one path that launches none.
+    n2 = g + 5
+    fop = make_fn_op(list(range(6)), lambda row: (row ^ 0b110101, torch.ones((), device=row.device)),
+                     tag="sharded-flip", self_transpose=True)
+    if [k for k, *_ in _lower_schedule(n2, g, [fop])] != ["gex"]:
+        raise AssertionError("the flip oracle did not lower to gex")
+    ops2 = [make_matrix_op([q], H) for q in range(0, n2, 2)] + [fop]
+    sched = compile_sharded_ops(mesh, n2, ops2, kernel_ok=True)
+    (sr, si), launches = counted(lambda: sched.run(*make_sharded_pair(mesh, n2, 1)))
+    sweeps2 = compile_sweeps(n2, ops2, True, HOPPER, "cuda")
+    single = run_sweeps(n2, sweeps2, *basis(n2, 1))
+    report("gex_flip", shard_diff((sr, si), single), launches,
+           cuda_ms(lambda: sched.run(*make_sharded_pair(mesh, n2, 1))),
+           cuda_ms(lambda: run_sweeps(n2, sweeps2, *basis(n2, 1))), n_flip=n2,
+           local_op_qubits=sum(1 for q in fop.indices if q >= g))
+
+    # (7) Grover-28, native diffusion, 3 rounds as one repeat block;
+    # (8) QFT-28 of the basis state with every bit set.
+    marked = 0b1011001110001111000011110101 & ((1 << n) - 1)
+
+    def grover_build(b):
+        r = b.h(b.register(n))
+        b.repeat(3, lambda bb, rr: grover_iteration(bb, rr, marked, native_diffusion=True), r)
+        return []
+
+    def qft_build(b):
+        r = b.register(n)
+        qfft(b, r)
+        return [(r, QFT_INPUT)]
+
+    for path, build in (("grover28_repeat3", grover_build), ("qft28_all_ones", qft_build)):
+        b1 = LocalBuilder(dtype="f32", device="cuda")
+        init = b1.initial_index(build(b1))
+        cc1 = b1.compile()
+        re1, im1, _ = cc1.run(init)
+        single_ms = cuda_ms(lambda: cc1.run(init))
+        b = LocalBuilder(dtype="f32", device="cuda")
+        it = build(b)
+        (sr, si, _), launches = counted(lambda: sharded_calculate_state(b, it, mesh=mesh, seed=0))
+        if launches["window_sweep"] <= 0:
+            raise AssertionError(f"sharded {path} launched no window kernel")
+        err = shard_diff((sr, si), (re1, im1))
+        extra = {}
+        if path == "qft28_all_ones":
+            extra = {"closed_form_err": qft_closed_err(sr, si, n, QFT_INPUT),
+                     "single_closed_form_err": qft_closed_err([re1], [im1], n, QFT_INPUT)}
+            if extra["closed_form_err"] > KERNEL_TOL:
+                raise AssertionError(f"sharded QFT-28 vs closed form: {extra}")
+        else:
+            idx = sum(((marked >> j) & 1) << (n - 1 - j) for j in range(n))
+            shard, rest = divmod(idx, 1 << (n - g))
+            amp = sr[shard].reshape(-1)[rest].item()
+            extra = {"p_marked": amp * amp,
+                     "want": float(np.sin(7 * np.arcsin(2.0 ** (-n / 2))) ** 2)}
+        cc = compile_sharded_explicit(n, entries_of(b), b.dtype, mesh)
+        report(path, err, launches, cuda_ms(lambda: cc.run(b.initial_index(it))), single_ms,
+               sweeps=cc.sweep_counts(), **extra)
+        del sr, si, re1, im1, cc, cc1
+        torch.cuda.empty_cache()
+
+    # a collapse forced on a global qubit (0) and on a local one (n - 1)
+    def collapse_build(b):
+        qs = b.split_all_register(b.h(b.register(n)))
+        qs[0], qs[-1] = b.cnot(qs[0], qs[-1])
+        qs[5] = b.t(qs[5])
+        qs[-1] = b.rz(qs[-1], 0.37)
+        b.measure(qs[0])
+        b.measure(qs[-1])
+
+    forced = {0: 1, 1: 0}
+    b1 = LocalBuilder(dtype="f32", device="cuda")
+    collapse_build(b1)
+    cc1 = b1.compile()
+    re1, im1, res1 = cc1.run(0, forced=forced)
+    b = LocalBuilder(dtype="f32", device="cuda")
+    collapse_build(b)
+    cc = compile_sharded_explicit(n, entries_of(b), b.dtype, mesh)
+    (sr, si, res), launches = counted(lambda: cc.run(0, forced=forced))
+    if launches["window_sweep"] <= 0:
+        raise AssertionError("sharded forced collapse launched no window kernel")
+    perr = max(abs(p - q) for (_, p), (_, q) in zip(res, res1))
+    if [o for o, _ in res] != [1, 0] or perr > E2E_TOL:
+        raise AssertionError(f"forced collapse: sharded {res} vs single {res1}")
+    report("forced_collapse", max(shard_diff((sr, si), (re1, im1)), perr), launches,
+           cuda_ms(lambda: cc.run(0, forced=forced)),
+           cuda_ms(lambda: cc1.run(0, forced=forced)),
+           outcomes=[o for o, _ in res], probs=[p for _, p in res],
+           single_probs=[p for _, p in res1])
+    del sr, si, re1, im1, cc, cc1
+    torch.cuda.empty_cache()
+    return dict(total), kinds
 
 
 def phase_window_breakdown(ccs):
@@ -1495,6 +1794,9 @@ def main() -> int:
     inter_launches, inter_kinds = phase_interchange()
     launches = {k: launches[k] + inter_launches[k] for k in launches}
     kind_launches = dict(Counter(kind_launches) + inter_kinds)
+    shard_launches, shard_kinds = phase_sharded()
+    launches = {k: launches[k] + shard_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + shard_kinds)
     kms, pms, qft_err, bound = phase_window_breakdown(ccs)
     step_err = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)

@@ -219,7 +219,9 @@ class LocalBuilder(
     there raises, as torch does). ``kernel_ok`` selects the
     window kernel for unitary runs: by default on for a CUDA f32 state;
     on a CPU state ``kernel_ok=True`` plans the same kernel windows and
-    runs them through the kernel's plain torch version.
+    runs them through the kernel's plain torch version. ``check_norm``
+    warns after each segment whose ``|psi|^2`` drifts past the JAX
+    package's tolerance (``engine.compile.NORM_VIOLATIONS`` keeps each).
     """
 
     def __init__(
@@ -230,6 +232,7 @@ class LocalBuilder(
         native_conditioning: bool = True,
         device="cuda",
         kernel_ok: Optional[bool] = None,
+        check_norm: bool = False,
     ):
         self.pipeline: List[PipelineItem] = []
         self._n = 0
@@ -250,6 +253,8 @@ class LocalBuilder(
         self._native_conditioning = native_conditioning
         self.device = torch.device(device)
         self._kernel_ok = kernel_ok
+        #: Opt-in per-segment norm-drift checks (debug; a host sync each).
+        self._check_norm = bool(check_norm)
 
     # -- CircuitBuilder primitives ------------------------------------------
     @property
@@ -413,7 +418,7 @@ class LocalBuilder(
             kwargs["max_fused_qubits"] = self._max_fused_qubits
         return compile_pipeline(
             self._n, entries, self.dtype, self._fuse, device=self.device,
-            kernel_ok=self._kernel_ok, **kwargs,
+            kernel_ok=self._kernel_ok, check_norm=self._check_norm, **kwargs,
         )
 
     def initial_index(
@@ -798,7 +803,8 @@ class LocalBuilder(
         return LocalBuilder(dtype=self.dtype, fuse=self._fuse,
                             max_fused_qubits=self._max_fused_qubits,
                             native_conditioning=self._native_conditioning,
-                            device=self.device, kernel_ok=self._kernel_ok)
+                            device=self.device, kernel_ok=self._kernel_ok,
+                            check_norm=self._check_norm)
 
     @staticmethod
     def invert_subcircuit(sc: List[PipelineItem]) -> List[PipelineItem]:

@@ -26,7 +26,17 @@ import numpy as np
 import torch
 
 from rustqip_tpu_torch.errors import CircuitError
-from rustqip_tpu_torch.ops.matrix_ops import expand_op_matrix, fn_values
+from rustqip_tpu_torch.ops.matrix_ops import (
+    ControlOp,
+    DenseOp,
+    FnOp,
+    PhaseProductOp,
+    ReflectionOp,
+    SparseOp,
+    SwapOp,
+    expand_op_matrix,
+    fn_values,
+)
 from rustqip_tpu_torch.types import MINOR_QUBITS
 from rustqip_tpu_torch.utils.bits import move_bits
 
@@ -688,19 +698,65 @@ def _reflection_plan(n: int, indices: Tuple[int, ...]):
     return B, tuple(stages)
 
 
-def _apply_reflection_2d(n: int, op, x2d: torch.Tensor) -> torch.Tensor:
-    """``psi -> 2*mean_Q(psi) - psi`` blockwise on the (R, C) view; the
-    operator is real, so each (re, im) plane takes the same transform."""
-    B, stages = _reflection_plan(n, tuple(op.indices))
+def _reflection_sum_2d(n: int, indices, x2d: torch.Tensor):
+    """``(summed, shape)``: the sum of ``x2d`` over the given qubits' bits,
+    broadcast within lanes (col bits, one matmul against a 0/1 matrix) and
+    keepdim-reduced over row bits in the last stage's view ``shape`` (the
+    view a caller takes of a full plane to broadcast against it; None when
+    no row bits are involved and ``summed`` is already (R, C))."""
+    B, stages = _reflection_plan(n, tuple(indices))
     s = x2d
     if B is not None:
         s = s @ _const(B, x2d)
-    scale = 2.0 / (1 << op.num_indices)
     for shape, axes in stages[:-1]:
         s = torch.sum(s.reshape(shape), dim=axes, keepdim=True)
         s = s.expand(shape).reshape(x2d.shape)
     if stages:
         shape, axes = stages[-1]
-        s = torch.sum(s.reshape(shape), dim=axes, keepdim=True)
+        return torch.sum(s.reshape(shape), dim=axes, keepdim=True), shape
+    return s, None
+
+
+def _apply_reflection_2d(n: int, op, x2d: torch.Tensor) -> torch.Tensor:
+    """``psi -> 2*mean_Q(psi) - psi`` blockwise on the (R, C) view; the
+    operator is real, so each (re, im) plane takes the same transform."""
+    s, shape = _reflection_sum_2d(n, op.indices, x2d)
+    scale = 2.0 / (1 << op.num_indices)
+    if shape is not None:
         return (scale * s - x2d.reshape(shape)).reshape(x2d.shape)
     return scale * s - x2d
+
+
+def _reindex_op(op, new_indices: Tuple[int, ...]):
+    """``op`` moved onto ``new_indices``, position for position (JAX
+    ``apply.py``:1026)."""
+    if isinstance(op, PhaseProductOp):
+        remap = dict(zip(op.indices, new_indices))
+        return PhaseProductOp(
+            tuple(
+                (tuple(remap[q] for q in tidx), tdiag)
+                for tidx, tdiag in op.terms
+            )
+        )
+    if isinstance(op, DenseOp):
+        return DenseOp(tuple(new_indices), op.data)
+    if isinstance(op, SparseOp):
+        return SparseOp(tuple(new_indices), op.rows)
+    if isinstance(op, SwapOp):
+        return SwapOp(tuple(new_indices))
+    if isinstance(op, ControlOp):
+        n_inner = op.inner.num_indices
+        inner = _reindex_op(op.inner, new_indices[op.n_ctrl:][:n_inner])
+        return ControlOp(op.n_ctrl, tuple(new_indices), inner)
+    if isinstance(op, FnOp):
+        # ``fn`` works in the op's own k-bit index space, keyed by the
+        # position of each qubit in ``indices``: a positional reindex keeps
+        # its meaning exactly.
+        return FnOp(
+            tuple(new_indices), op.fn, op.tag, op.conjugated,
+            op.self_transpose, op.diagonal,
+        )
+    if isinstance(op, ReflectionOp):
+        # |s><s| is symmetric under permutations of its qubits: re-sort.
+        return ReflectionOp(tuple(sorted(new_indices)))
+    raise TypeError(f"Unknown op {op!r}")

@@ -9,8 +9,10 @@ sweeps and measurements; repeat blocks are a Python loop over the same
 planned body.
 
 Compiled circuits are cached by a structural fingerprint of the pipeline
-plus the device, dtype and kernel policy. The JAX package's
-``RUSTQIP_TPU_*`` knobs are not read: their defaults are hard-wired.
+plus the device, dtype, kernel policy and ``check_norm``. The JAX package's
+``RUSTQIP_TPU_*`` knobs are not read: their defaults are hard-wired
+(``RUSTQIP_TPU_CHECK_NORM`` included: norm checks are the ``check_norm``
+argument alone).
 """
 
 from __future__ import annotations
@@ -77,6 +79,32 @@ class RepeatEntry:
 PipelineEntry = Union[UnitaryEntry, MeasureEntry, RepeatEntry]
 
 
+#: Norm-drift violations observed by the opt-in runtime checks (tests and
+#: debugging read this; it is never consulted on the hot path).
+NORM_VIOLATIONS: List[tuple] = []
+
+
+def _norm_check_cb(total, seg_index, tol):
+    """Record and warn when ``|psi|^2`` after a segment is off 1 by more
+    than ``tol`` (JAX ``compile.py``:96)."""
+    import warnings
+
+    total = float(total)
+    if abs(total - 1.0) > tol:
+        NORM_VIOLATIONS.append((int(seg_index), total))
+        warnings.warn(
+            f"norm drift after segment {int(seg_index)}: |psi|^2 = {total!r}",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
+
+def _norm_tol(dtype) -> float:
+    """The JAX package's per-segment tolerance: 1e-3 for complex64, 1e-9
+    for complex128."""
+    return 1e-3 if np.dtype(dtype).itemsize == 8 else 1e-9
+
+
 class CompiledCircuit:
     """An executable circuit on one device."""
 
@@ -89,7 +117,13 @@ class CompiledCircuit:
         max_fused_qubits: int = DEFAULT_MAX_FUSED_QUBITS,
         device="cuda",
         kernel_ok: Optional[bool] = None,
+        check_norm: bool = False,
     ):
+        #: Opt-in per-segment |psi|^2 checks (a host sync per segment; debug
+        #: only). Meaningful for unitary pipelines: projector-like
+        #: non-unitary ops legitimately change the norm.
+        self._check_norm = bool(check_norm)
+        self._norm_tol = _norm_tol(dtype)
         self.n = n
         self.dtype = np.dtype(dtype)
         self.rdtype = real_dtype_of(self.dtype)
@@ -98,16 +132,34 @@ class CompiledCircuit:
         self.num_measurements = sum(
             1 for e in self.entries if isinstance(e, MeasureEntry)
         )
-        #: Whether unitary runs take the window kernel: by default when the
-        #: state lives on CUDA; never for float64 (the JAX package's rule).
+        #: Whether unitary runs take the window kernel: by default the
+        #: circuit's policy (``_kernel_policy``); never for float64 (the JAX
+        #: package's rule).
         if kernel_ok is None:
-            kernel_ok = self.device.type == "cuda"
+            kernel_ok = self._kernel_policy()
         self._kernel_ok = bool(kernel_ok) and self.rdtype == np.float32
         #: Kernel admission: the Hopper rules for a CUDA state, the
         #: reference's elsewhere. Fusion and planning read the same object.
         self.admission = for_device(self.device)
         self.segments = self._plan(fuse, max_fused_qubits)
         self.sweeps = [self._compile_segment(s) for s in self.segments]
+
+    def _kernel_policy(self) -> bool:
+        """Whether unitary runs may take the window kernel when the caller
+        does not say: a single-device circuit takes it on CUDA. Sharded
+        circuits override it (``parallel/``)."""
+        return self.device.type == "cuda"
+
+    def _fusion_keep(self):
+        """The butterfly keep-predicate window-aware fusion uses when the
+        kernel path is active. Sharded executors override: eligibility is
+        judged in the shard-local qubit space the kernel sees."""
+        n, adm = self.n, self.admission
+        return lambda op: butterfly_eligible(n, op, adm)
+
+    def _fusion_joint_ok(self):
+        """The greedy-joint cap predicate (see ``_fusion_keep``)."""
+        return window_joint_ok(self.n, self.admission)
 
     # -- planning ----------------------------------------------------------
     def _plan(self, fuse: bool, max_fused_qubits: int):
@@ -118,9 +170,8 @@ class CompiledCircuit:
         run: List[MatrixOp] = []
         keep = joint_ok = None
         if self._kernel_ok:
-            n, adm = self.n, self.admission
-            keep = lambda op: butterfly_eligible(n, op, adm)  # noqa: E731
-            joint_ok = window_joint_ok(n, adm)
+            keep = self._fusion_keep()
+            joint_ok = self._fusion_joint_ok()
 
         def fused(ops):
             if not fuse:
@@ -271,7 +322,7 @@ class CompiledCircuit:
             re, im = self._one_hot(initial_index)
         results: List = []
         m_i = 0
-        for seg in self.sweeps:
+        for s_i, seg in enumerate(self.sweeps):
             if isinstance(seg, MeasureEntry):
                 probs = measure_probs_ri(self.n, seg.indices, re, im)
                 if seg.stochastic:
@@ -293,6 +344,8 @@ class CompiledCircuit:
                     re, im = run_sweeps(self.n, seg[2], re, im)
             else:
                 re, im = run_sweeps(self.n, seg, re, im)
+            if self._check_norm:
+                _norm_check_cb(torch.sum(re * re + im * im), s_i, self._norm_tol)
         return re, im, tuple(results)
 
     def run_complex(
@@ -322,6 +375,7 @@ def compile_pipeline(
     max_fused_qubits: int = DEFAULT_MAX_FUSED_QUBITS,
     device="cuda",
     kernel_ok: Optional[bool] = None,
+    check_norm: bool = False,
 ) -> CompiledCircuit:
     """Compile (with caching) a lowered pipeline into a CompiledCircuit."""
     dtype = np.dtype(dtype)
@@ -333,12 +387,14 @@ def compile_pipeline(
         max_fused_qubits,
         str(dev),
         kernel_ok,
+        bool(check_norm),
         tuple(e.fingerprint() for e in entries),
     )
     cached = _CACHE.get(fp)
     if cached is None:
         cached = CompiledCircuit(
-            n, entries, dtype, fuse, max_fused_qubits, dev, kernel_ok
+            n, entries, dtype, fuse, max_fused_qubits, dev, kernel_ok,
+            check_norm=bool(check_norm),
         )
         _CACHE[fp] = cached
     return cached

@@ -117,11 +117,13 @@ def _strips(seg_shape, h: int, C: int, re, im):
     return strip, two_axes, strip_shape
 
 
-def _dense_ri(n: int, indices, mat: np.ndarray, re, im) -> Pair:
+def _dense_ri(n: int, indices, mat: np.ndarray, re, im, low_kernel=True) -> Pair:
     plan = _dense_plan(n, tuple(indices), _mat_key(mat))
     if plan[0] == "low":
         _, B, R, C = plan
-        return window_kernel.c64_low_matmul(re.reshape(R, C), im.reshape(R, C), B)
+        return window_kernel.c64_low_matmul(
+            re.reshape(R, C), im.reshape(R, C), B, kernel=low_kernel
+        )
     _, blocks, seg_shape, h, R, C = plan
     strip, two_axes, strip_shape = _strips(seg_shape, h, C, re, im)
     cache = {}
@@ -155,9 +157,9 @@ def _dense_ri(n: int, indices, mat: np.ndarray, re, im) -> Pair:
     )
 
 
-def _control_ri(n: int, op: ControlOp, re, im) -> Pair:
+def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True) -> Pair:
     if op.num_indices <= DENSE_CAP:
-        return _dense_ri(n, op.indices, op_to_dense(op), re, im)
+        return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     _, R, C = _geometry(n)
     # The select below reads the input again. Only an inner SwapOp whose row
     # pairs run the row-swap kernel (CUDA) updates its planes in place, so
@@ -165,7 +167,7 @@ def _control_ri(n: int, op: ControlOp, re, im) -> Pair:
     inner_in = (re, im)
     if isinstance(op.inner, SwapOp) and re.is_cuda and _swap_schedule(n, op.inner)[1]:
         inner_in = copy_probe.plane_copy(re.contiguous(), im.contiguous())
-    in_r, in_i = apply_op_ri(n, op.inner, *inner_in)
+    in_r, in_i = apply_op_ri(n, op.inner, *inner_in, low_kernel=low_kernel)
     mask = _control_mask_2d(n, op.control_indices, R, C, re.device)
     return (
         torch.where(mask, in_r.reshape(R, C), re.reshape(R, C)),
@@ -179,18 +181,23 @@ _SWAP2 = np.array(
 )
 
 
-def apply_op_ri(n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor) -> Pair:
-    """Apply one gate op to the (R, C) (re, im) planes of a 2^n state."""
+def apply_op_ri(
+    n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor,
+    low_kernel: bool = True,
+) -> Pair:
+    """Apply one gate op to the (R, C) (re, im) planes of a 2^n state.
+    ``low_kernel=False`` keeps a dense op on the lane qubits off the window
+    kernel (``c64_low_matmul``'s plain matmuls)."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     if isinstance(op, PhaseProductOp):
         return _phase_mul_ri(n, op, re, im)
     if isinstance(op, DenseOp):
-        return _dense_ri(n, op.indices, op.data, re, im)
+        return _dense_ri(n, op.indices, op.data, re, im, low_kernel)
     if isinstance(op, SparseOp):
         if op.num_indices > DENSE_CAP:
             return _sparse_apply_planes(n, op, re, im)
-        return _dense_ri(n, op.indices, op_to_dense(op), re, im)
+        return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     if isinstance(op, SwapOp):
         cross, rowp, colp, mixed = _swap_schedule(n, op)
         if cross:
@@ -200,10 +207,10 @@ def apply_op_ri(n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor) -> Pai
         if colp:
             re, im = _col_swap_planes(n, colp, [re, im])
         for a, b in mixed:
-            re, im = _dense_ri(n, (a, b), _SWAP2, re, im)
+            re, im = _dense_ri(n, (a, b), _SWAP2, re, im, low_kernel)
         return re, im
     if isinstance(op, ControlOp):
-        return _control_ri(n, op, re, im)
+        return _control_ri(n, op, re, im, low_kernel)
     if isinstance(op, FnOp):
         return _fn_apply_planes(n, op, re, im)
     if isinstance(op, ReflectionOp):
@@ -625,14 +632,17 @@ def window_ksteps(n: int, hq, steps) -> list:
     return ksteps
 
 
-def _window_sweep_ri(n: int, window, re, im) -> Pair:
-    """Execute a collected window as one plain torch sweep."""
+def _window_sweep_ri(n: int, window, re, im, low_kernel: bool = True) -> Pair:
+    """Execute a collected window as one plain torch sweep (a lone ``low``
+    run as ``c64_low_matmul``, whose kernel ``low_kernel`` allows)."""
     hq, steps = window
     h = len(hq)
     m, R, C = _geometry(n)
     if h == 0:
         (_, B), = steps
-        return window_kernel.c64_low_matmul(re.reshape(R, C), im.reshape(R, C), B)
+        return window_kernel.c64_low_matmul(
+            re.reshape(R, C), im.reshape(R, C), B, kernel=low_kernel
+        )
     seg_shape = _row_segment_shape(n, m, list(hq))
     strip, two_axes, strip_shape = _strips(seg_shape, h, C, re, im)
     strips = [strip(i) for i in range(1 << h)]
@@ -759,9 +769,13 @@ def compile_sweeps(
     return out
 
 
-def run_sweeps(n: int, sweeps, re: torch.Tensor, im: torch.Tensor) -> Pair:
+def run_sweeps(
+    n: int, sweeps, re: torch.Tensor, im: torch.Tensor, low_kernel: bool = True
+) -> Pair:
     """Execute a ``compile_sweeps`` plan on (R, C) planes. Kernel sweeps
-    update their planes in place."""
+    update their planes in place. ``low_kernel=False`` also keeps
+    ``c64_low_matmul`` off the kernel, so a plan without kernel windows
+    launches no window kernel at all (the sharded GSPMD counterpart)."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
@@ -771,9 +785,9 @@ def run_sweeps(n: int, sweeps, re: torch.Tensor, im: torch.Tensor) -> Pair:
                 n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog
             )
         elif kind == "window":
-            re, im = _window_sweep_ri(n, payload, re, im)
+            re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
         else:
-            re, im = apply_op_ri(n, payload, re, im)
+            re, im = apply_op_ri(n, payload, re, im, low_kernel)
     return re, im
 
 

@@ -889,14 +889,14 @@ def _low_program(R: int, B: np.ndarray) -> WindowProgram:
     return prog
 
 
-def c64_low_matmul(xr, xi, B: np.ndarray):
+def c64_low_matmul(xr, xi, B: np.ndarray, kernel: bool = True):
     """(xr + i xi) @ B.T for a C x C complex block matrix B on (R, C)
     planes: a one-"low"-step window of the same kernel for CUDA float32
     (as ``pallas_kernels.c64_low_matmul`` takes its kernel on the TPU),
-    plain matmuls otherwise. Like the JAX function it leaves its inputs
-    alone (callers such as a wide controlled op read them again), so the
-    in-place kernel runs on copies."""
-    if xr.is_cuda and xr.dtype == torch.float32 and xr.shape[1] == _C:
+    plain matmuls otherwise or when ``kernel`` is false. Like the JAX
+    function it leaves its inputs alone (callers such as a wide controlled
+    op read them again), so the in-place kernel runs on copies."""
+    if kernel and xr.is_cuda and xr.dtype == torch.float32 and xr.shape[1] == _C:
         prog = _low_program(xr.shape[0], B)
         return window_sweep(prog.n, xr.clone(), xi.clone(), prog.seg_sizes,
                             [("low", B)], prog=prog)

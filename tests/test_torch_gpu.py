@@ -30,6 +30,8 @@ STEP_WINDOWS = step_windows(20)
 
 pytestmark = pytest.mark.gpu
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 
 @pytest.fixture
 def cuda():

@@ -21,6 +21,8 @@ X_IN = (1 << N) - 1
 
 pytestmark = pytest.mark.gpu
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 
 @pytest.fixture
 def cuda():

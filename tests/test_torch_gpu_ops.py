@@ -15,6 +15,8 @@ TOL = 1e-6
 
 pytestmark = pytest.mark.gpu
 
+torch.set_num_threads(1)  # the test runner keeps one worker per core busy
+
 
 @pytest.fixture
 def cuda():
