@@ -28,6 +28,10 @@ this host) against the card at n = 20. ``phase_sharded`` splits 28-qubit
 states into eight shards on this one card (``parallel/``) and runs the
 paths of the JAX package's multi-device dry run through the explicit and
 the kernel-off executors, each against the single-device kernel path.
+``phase_state_api`` runs the state-vector API on a 2 GiB complex64 state:
+QFT-28's op list through ``engine.apply_ops`` (window and row-swap
+kernels), a lane ``apply_op`` (``c64_low_matmul``), a row-pair ``SwapOp``
+and the complex measurement API, each against its plain version.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``), one window per redesigned step kind alone
@@ -1434,6 +1438,206 @@ def phase_sharded():
     return dict(total), kinds
 
 
+API_MEASURED = list(range(2, 26))  # phase_state_api's 24 measured qubits
+
+
+def phase_state_api():
+    """The state-vector API at n = 28 in complex64 on the card: a seeded
+    flat state (2 GiB) through ``engine.apply_ops`` with QFT-28's op list
+    (the builder's pipeline as ``compile_pipeline`` receives it: 798 ops,
+    14 of them one-pair ``SwapOp``s), held within ``E2E_TOL`` of the plain
+    path on the same card (``run_sweeps(..., low_kernel=False,
+    swap_kernel=False)``, which launches no kernel at all) and the input
+    bit-equal afterwards; the
+    window kernel must launch once per kernel window of the plan and the
+    row-swap kernel once per ``SwapOp`` with row pairs. Then ``apply_op``
+    of a random unitary on the lane qubits 26, 27 (one ``c64_low_matmul``
+    launch, within ``KERNEL_TOL`` of its plain matmuls), of a ``SwapOp``
+    with seven row pairs (one ``row_swap`` launch, bit-equal to the plain
+    permutation), and the complex measurement API on the QFT result
+    against the plane functions. Times (CUDA events, median of REPS after
+    a warm-up): ``apply_ops`` whole, its host planning apart (host clock),
+    its sweeps alone and summed by kind (kernel windows, cross-pair and
+    row-pair swaps, each sweep timed alone), the split and the join, the
+    same pipeline through
+    ``CompiledCircuit.run`` (fused, swaps relabelled), and the lane
+    ``apply_op`` by part. Returns the launch and step-kind totals of the
+    counted runs."""
+    import numpy as np
+    import torch
+
+    from rustqip_tpu_torch.algos import qfft
+    from rustqip_tpu_torch.builder.builder import _lower_item
+    from rustqip_tpu_torch.engine import apply_op, apply_ops, compile_pipeline
+    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine.admission import HOPPER
+    from rustqip_tpu_torch.engine.apply import _dense_plan, _join, _mat_key, _split, _swap_schedule
+    from rustqip_tpu_torch.engine.real_apply import compile_sweeps, run_sweeps
+    from rustqip_tpu_torch.engine.row_swap import row_swap_reference
+    from rustqip_tpu_torch.ops import MeasuredCondition, measure, measure_probs, prob_magnitude
+    from rustqip_tpu_torch.ops.matrix_ops import SwapOp, make_matrix_op, make_swap_op
+    from rustqip_tpu_torch.ops.measurement_ops import measure_probs_ri, measure_ri, measure_state_ri
+    from rustqip_tpu_torch.prelude import LocalBuilder
+
+    n = N_MAIN
+    total, kinds = Counter(), Counter()
+
+    def counted(fn):
+        """``fn()`` with every launch count zeroed just before and read just
+        after (a main-path run: added to the totals)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total.update(launches)
+        kinds.update(wk.KIND_LAUNCHES)
+        return out, launches
+
+    def diff(c, re, im):
+        """max |c - (re + i im)| of a flat complex state and (R, C) planes."""
+        c = c.reshape(re.shape)
+        return max((c.real - re).abs().max().item(), (c.imag - im).abs().max().item())
+
+    def host_ms(fn):
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2028)
+    state = torch.randn(1 << n, dtype=torch.complex64, device="cuda", generator=g)
+    state /= torch.linalg.vector_norm(state)
+    keep = state.clone()
+    b = LocalBuilder(dtype="f32", device="cuda")
+    qfft(b, b.register(n))
+    entries = [e for item in b.pipeline for e in _lower_item(item)]
+    ops = [e.op for e in entries]
+    plan = compile_sweeps(n, ops, True, HOPPER)
+    kwindows = sum(k == "kwindow" for k, _, _ in plan)
+    row_swaps = sum(isinstance(op, SwapOp) and bool(_swap_schedule(n, op)[1]) for op in ops)
+
+    # (1) QFT-28's op list through apply_ops, against the plain path
+    out, launches = counted(lambda: apply_ops(n, ops, state))
+    if not torch.equal(state, keep):
+        raise AssertionError("state API: apply_ops wrote its input")
+    if not (launches["window_sweep"] == kwindows > 0 and launches["row_swap"] == row_swaps > 0):
+        raise AssertionError(f"state API: launches {launches}, want {kwindows} window and "
+                             f"{row_swaps} row-swap launches")
+    plain_plan = compile_sweeps(n, ops, False, HOPPER)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pr, pi = run_sweeps(n, plain_plan, *_split(n, state, None), low_kernel=False,
+                        swap_kernel=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if read_launches() != {"window_sweep": 0, "row_swap": 0, "plane_copy": 0}:
+        raise AssertionError(f"state API: the plain path launched {read_launches()}")
+    err = diff(out, pr, pi)
+    del pr, pi
+    norm_err = abs(float(prob_magnitude(out)) - 1.0)
+    if err > E2E_TOL or norm_err > E2E_TOL:
+        raise AssertionError(f"state API: apply_ops vs plain max|diff| {err}, "
+                             f"|norm - 1| {norm_err}")
+    row = {"phase": "state_api", "n": n, "dtype": "complex64", "ops": len(ops),
+           "kwindow_sweeps": kwindows, "plain_plan_sweeps": len(plain_plan),
+           "apply_ops_launches": launches, "apply_ops_vs_plain_max_abs_diff": err,
+           "input_bit_equal": True, "norm_err": norm_err, "plain_path_host_ms": plain_ms}
+    row["apply_ops_ms"] = cuda_ms(lambda: apply_ops(n, ops, state))
+    row["plan_host_ms"] = host_ms(lambda: compile_sweeps(n, ops, True, HOPPER))
+    sweeps = compile_sweeps(n, ops, True, HOPPER, "cuda")
+    re, im = _split(n, state, None)
+    row["sweeps_ms"] = cuda_ms(lambda: run_sweeps(n, sweeps, re, im))
+    parts = Counter()
+    for sweep in sweeps:
+        kind, op = sweep[0], sweep[2][0]
+        if kind == "op" and isinstance(op, SwapOp):
+            cross, rowp, _, _ = _swap_schedule(n, op)
+            kind = "cross_swap" if cross else "row_swap" if rowp else "other_swap"
+        parts[kind] += cuda_ms(lambda: run_sweeps(n, [sweep], re, im))
+    row["sweeps_ms_by_kind"] = dict(parts)
+    row["split_ms"] = cuda_ms(lambda: _split(n, state, None))
+    row["join_ms"] = cuda_ms(lambda: _join(re, im))
+    del re, im
+    torch.cuda.empty_cache()
+    cc = compile_pipeline(n, entries, np.complex64, device="cuda")
+    row["compiled_run_ms"] = cuda_ms(lambda: cc.run(0))
+    row["compiled_sweeps"] = cc.sweep_counts()
+
+    # (2) a dense op on the lane qubits: one c64_low_matmul launch
+    rng = np.random.default_rng(26)
+    u = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))[0]
+    lane = make_matrix_op([n - 2, n - 1], u.reshape(-1))
+    lane_out, launches = counted(lambda: apply_op(n, lane, state))
+    if launches != {"window_sweep": 1, "row_swap": 0, "plane_copy": 0}:
+        raise AssertionError(f"state API: lane apply_op launched {launches}")
+    B = _dense_plan(n, lane.indices, _mat_key(lane.data))[1]
+    re, im = _split(n, state, None)
+    err_lane = diff(lane_out, *wk.c64_low_matmul(re, im, B, kernel=False))
+    del lane_out
+    if err_lane > KERNEL_TOL or not torch.equal(state, keep):
+        raise AssertionError(f"state API: lane apply_op vs plain max|diff| {err_lane}")
+    prog = wk._low_program(re.shape[0], B)
+    row.update({
+        "lane_apply_op_launches": launches, "lane_vs_plain_max_abs_diff": err_lane,
+        "lane_apply_op_ms": cuda_ms(lambda: apply_op(n, lane, state)),
+        "lane_c64_low_matmul_ms": cuda_ms(lambda: wk.c64_low_matmul(re, im, B)),
+        "lane_kernel_in_place_ms": cuda_ms(lambda: wk.window_sweep(
+            n, re, im, prog.seg_sizes, [("low", B)], prog=prog)),
+        "lane_plain_matmul_ms": cuda_ms(lambda: wk.c64_low_matmul(re, im, B, kernel=False)),
+    })
+    del re, im
+    torch.cuda.empty_cache()
+
+    # (3) a SwapOp of seven row pairs: one row_swap launch, exact
+    pairs = [(q, n - 1 - q) for q in range(n // 2) if n - 1 - q < n - 7]  # QFT's row field
+    swap = make_swap_op(*zip(*pairs))
+    sw_out, launches = counted(lambda: apply_op(n, swap, state))
+    if launches != {"window_sweep": 0, "row_swap": 1, "plane_copy": 0}:
+        raise AssertionError(f"state API: row-pair SwapOp launched {launches}")
+    if not torch.equal(sw_out, _join(*row_swap_reference(n, pairs, *_split(n, state, None)))):
+        raise AssertionError("state API: row-pair SwapOp differs from the plain permutation")
+    del sw_out
+    row["swap_apply_op_launches"] = launches
+    row["swap_apply_op_ms"] = cuda_ms(lambda: apply_op(n, swap, state))
+    torch.cuda.empty_cache()
+
+    # (4) the complex measurement API on the QFT result, against the planes
+    re, im = _split(n, out, None)
+    probs = measure_probs(n, API_MEASURED, out)
+    probs_ri = measure_probs_ri(n, API_MEASURED, re, im)
+    # about 2^-24 an outcome: the limit is relative to the largest
+    err_probs = ((probs - probs_ri).abs().max() / probs_ri.max()).item()
+    m = int(torch.argmax(probs_ri))
+    outcome, prob, col = measure(n, API_MEASURED, out, measured=MeasuredCondition(m))
+    err_col = diff(col, *measure_state_ri(n, API_MEASURED, (m, float(probs_ri[m])), re, im))
+    col_norm_err = abs(float(prob_magnitude(col)) - 1.0)
+    del col
+    draws = []
+    for seed in (1, 2, 3):
+        g1, g2 = torch.Generator(), torch.Generator()
+        g1.manual_seed(seed)
+        g2.manual_seed(seed)
+        draws.append((measure(n, API_MEASURED, out, generator=g1)[0],
+                      measure_ri(n, API_MEASURED, re, im, generator=g2)[0]))
+    if err_probs > KERNEL_TOL or err_col > KERNEL_TOL or col_norm_err > E2E_TOL \
+            or outcome != m or any(x != y for x, y in draws):
+        raise AssertionError(f"state API measurement: probs {err_probs}, collapse {err_col}, "
+                             f"|norm - 1| {col_norm_err}, draws {draws}")
+    row.update({"measured_qubits": len(API_MEASURED), "probs_vs_planes_max_rel_diff": err_probs,
+                "forced_outcome": m, "forced_prob": prob, "collapse_vs_planes_max_abs_diff": err_col,
+                "collapse_norm_err": col_norm_err, "seeded_draws": [x for x, _ in draws],
+                "measure_probs_ms": cuda_ms(lambda: measure_probs(n, API_MEASURED, out))})
+    del re, im, out, probs, probs_ri, state, keep
+    torch.cuda.empty_cache()
+    emit(row)
+    return total, kinds
+
+
 def phase_window_breakdown(ccs):
     """Each kernel window of QFT-28 and of the gate-form Grover-28
     iteration alone, on a seeded random state: kernel time (median of
@@ -1797,6 +2001,9 @@ def main() -> int:
     shard_launches, shard_kinds = phase_sharded()
     launches = {k: launches[k] + shard_launches[k] for k in launches}
     kind_launches = dict(Counter(kind_launches) + shard_kinds)
+    api_launches, api_kinds = phase_state_api()
+    launches = {k: launches[k] + api_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + api_kinds)
     kms, pms, qft_err, bound = phase_window_breakdown(ccs)
     step_err = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)

@@ -6,6 +6,17 @@ from rustqip_tpu_torch.builder.builder import (
     Measurements,
     StochasticMeasurementHandle,
 )
+from rustqip_tpu_torch.builder.circuit_objects import (
+    CircuitObject,
+    ControlledMatGate,
+    GlobalPhaseGate,
+    MatGate,
+    MeasurementObject,
+    NamedGate,
+    RzGate,
+    UnitaryObject,
+    invert_circuit_object,
+)
 from rustqip_tpu_torch.builder.conditioning import Conditioned
 from rustqip_tpu_torch.builder.inverter import inverter, inverter_args
 from rustqip_tpu_torch.builder.registers import (
@@ -21,6 +32,15 @@ __all__ = [
     "Register",
     "SplitResult",
     "SplitManyResult",
+    "CircuitObject",
+    "UnitaryObject",
+    "NamedGate",
+    "RzGate",
+    "MatGate",
+    "ControlledMatGate",
+    "GlobalPhaseGate",
+    "MeasurementObject",
+    "invert_circuit_object",
     "Measurements",
     "MeasurementHandle",
     "StochasticMeasurementHandle",

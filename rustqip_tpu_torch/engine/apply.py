@@ -7,9 +7,15 @@ the dense block plan (``_dense_plan``), the phase-product monomial plan
 (``_sparse_apply_planes``) and function ops (``_fn_apply_planes``),
 control masks, the structured swap passes and the reflection pass. Plans
 are numpy and cached; the passes are
-torch on whatever device the planes live on. The JAX package's complex-array
-path (``_apply_dense``, ``_t_apply``, ...) is not carried over: the port has
-one execution domain, (re, im) planes of shape ``(R, 128)`` in f32 or f64.
+torch on whatever device the planes live on.
+
+The state-vector API at the end (``apply_op``, ``apply_op_add``,
+``apply_ops``, ``as_vector``, ``as_tensor``) takes flat complex states and
+runs them in the port's one execution domain, (re, im) planes of shape
+``(R, 128)`` in f32 or f64: one split, the plane engine, one join. The JAX
+package's two complex formulations behind the same names, the TPU-tiled
+``_apply_to_state`` and the CPU rank-n ``_t_apply``, are backend choices
+that the plane engine replaces, and are not carried over.
 
 Index conventions are the reference's: qubit q is bit ``n-1-q`` of the
 state index; in the (R, C) view row qubits are ``q < n - m`` (row bit
@@ -30,6 +36,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
     FnOp,
+    MatrixOp,
     PhaseProductOp,
     ReflectionOp,
     SparseOp,
@@ -760,3 +767,86 @@ def _reindex_op(op, new_indices: Tuple[int, ...]):
         # |s><s| is symmetric under permutations of its qubits: re-sort.
         return ReflectionOp(tuple(sorted(new_indices)))
     raise TypeError(f"Unknown op {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# The state-vector API (L0): flat complex 2^n states in, new states out.
+# ---------------------------------------------------------------------------
+
+#: The complex dtype a real state is promoted to.
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def _state_tensor(state, device) -> torch.Tensor:
+    """A complex tensor of ``state``: a tensor stays on its own device, a
+    numpy array (or anything else ``np.asarray`` takes) goes to ``device``."""
+    if isinstance(state, torch.Tensor):
+        x = state
+    else:
+        x = torch.as_tensor(np.ascontiguousarray(state), device=device)
+    if x.is_complex():
+        return x.resolve_conj()
+    if x.dtype not in _COMPLEX_OF:
+        raise TypeError(f"a state must be complex64/128 or float32/64, got {x.dtype}")
+    return x.to(_COMPLEX_OF[x.dtype])
+
+
+def _split(n: int, state, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fresh contiguous (R, C) (re, im) planes of a flat complex 2^n state,
+    from one read of it: the planes are the two halves of one new buffer,
+    so passes that update planes in place never reach the caller's state."""
+    x = _state_tensor(state, device)
+    if x.numel() != 1 << n:
+        raise ValueError(f"a state of {n} qubits has {1 << n} amplitudes, got {x.numel()}")
+    _, R, C = _geometry(n)
+    planes = torch.view_as_real(x.reshape(R, C)).permute(2, 0, 1).contiguous()
+    return planes[0], planes[1]
+
+
+def _join(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    return torch.complex(re, im).reshape(-1)
+
+
+def as_vector(state) -> torch.Tensor:
+    """The flat view of a state (a numpy array becomes a CPU tensor)."""
+    return torch.as_tensor(state).reshape(-1)
+
+
+def as_tensor(state, n: int) -> torch.Tensor:
+    """The rank-n ``(2,) * n`` view of a state, qubit q on axis q (a numpy
+    array becomes a CPU tensor). Torch holds any rank, but some of its ops
+    refuse a tensor of more than 25 axes that they cannot coalesce (n = 28
+    is one)."""
+    return torch.as_tensor(state).reshape((2,) * n)
+
+
+def apply_op(n: int, op: MatrixOp, state, device="cuda") -> torch.Tensor:
+    """Apply one gate op to a flat 2^n complex state; returns a new flat
+    state and leaves ``state`` alone (the reference's
+    ``apply_op_overwrite``, qip-iterators/src/matrix_ops.rs:127, with zero
+    offsets). A tensor is computed on its own device, a numpy array on
+    ``device``. The state is split into (re, im) planes, run through
+    ``real_apply.apply_op_ri`` (the window kernel for a dense op on the
+    lane qubits and the row-swap kernel for a swap's row pairs, on a CUDA
+    float32 state) and joined."""
+    from rustqip_tpu_torch.engine.real_apply import apply_op_ri
+
+    return _join(*apply_op_ri(n, op, *_split(n, state, device)))
+
+
+def apply_op_add(n: int, op: MatrixOp, state, acc, device="cuda") -> torch.Tensor:
+    """``acc + op @ state``: the reference's accumulating ``apply_op``
+    (qip-iterators/src/matrix_ops.rs:98-123)."""
+    out = apply_op(n, op, state, device)
+    return _state_tensor(acc, out.device).reshape(-1) + out
+
+
+def apply_ops(n: int, ops: Sequence[MatrixOp], state, device="cuda") -> torch.Tensor:
+    """Apply ops in sequence (the reference's ``apply_ops``,
+    matrix_ops.rs:158): one split, ``real_apply.apply_ops_ri`` (strip-window
+    sweeps planned per call, the window kernel's on a CUDA float32 state),
+    one join. Ops are not fused here: ``fuse_ops`` does that ahead of
+    time."""
+    from rustqip_tpu_torch.engine.real_apply import apply_ops_ri
+
+    return _join(*apply_ops_ri(n, ops, *_split(n, state, device)))

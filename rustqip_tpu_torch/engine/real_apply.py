@@ -157,7 +157,7 @@ def _dense_ri(n: int, indices, mat: np.ndarray, re, im, low_kernel=True) -> Pair
     )
 
 
-def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True) -> Pair:
+def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True, swap_kernel=True) -> Pair:
     if op.num_indices <= DENSE_CAP:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     _, R, C = _geometry(n)
@@ -165,9 +165,11 @@ def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True) -> Pair:
     # pairs run the row-swap kernel (CUDA) updates its planes in place, so
     # only it gets copies; every other inner op returns fresh planes.
     inner_in = (re, im)
-    if isinstance(op.inner, SwapOp) and re.is_cuda and _swap_schedule(n, op.inner)[1]:
+    if (isinstance(op.inner, SwapOp) and re.is_cuda and swap_kernel
+            and _swap_schedule(n, op.inner)[1]):
         inner_in = copy_probe.plane_copy(re.contiguous(), im.contiguous())
-    in_r, in_i = apply_op_ri(n, op.inner, *inner_in, low_kernel=low_kernel)
+    in_r, in_i = apply_op_ri(n, op.inner, *inner_in, low_kernel=low_kernel,
+                             swap_kernel=swap_kernel)
     mask = _control_mask_2d(n, op.control_indices, R, C, re.device)
     return (
         torch.where(mask, in_r.reshape(R, C), re.reshape(R, C)),
@@ -183,11 +185,13 @@ _SWAP2 = np.array(
 
 def apply_op_ri(
     n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor,
-    low_kernel: bool = True,
+    low_kernel: bool = True, swap_kernel: bool = True,
 ) -> Pair:
     """Apply one gate op to the (R, C) (re, im) planes of a 2^n state.
     ``low_kernel=False`` keeps a dense op on the lane qubits off the window
-    kernel (``c64_low_matmul``'s plain matmuls)."""
+    kernel (``c64_low_matmul``'s plain matmuls); ``swap_kernel=False``
+    keeps a swap's row pairs off the row-swap kernel
+    (``row_swap_reference``) and a controlled swap off ``plane_copy``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     if isinstance(op, PhaseProductOp):
@@ -203,14 +207,15 @@ def apply_op_ri(
         if cross:
             re, im = _cross_swap_planes(n, cross, [re, im])
         if rowp:
-            re, im = row_swap.row_swap(n, rowp, re, im)
+            swap = row_swap.row_swap if swap_kernel else row_swap.row_swap_reference
+            re, im = swap(n, rowp, re, im)
         if colp:
             re, im = _col_swap_planes(n, colp, [re, im])
         for a, b in mixed:
             re, im = _dense_ri(n, (a, b), _SWAP2, re, im, low_kernel)
         return re, im
     if isinstance(op, ControlOp):
-        return _control_ri(n, op, re, im, low_kernel)
+        return _control_ri(n, op, re, im, low_kernel, swap_kernel)
     if isinstance(op, FnOp):
         return _fn_apply_planes(n, op, re, im)
     if isinstance(op, ReflectionOp):
@@ -770,12 +775,15 @@ def compile_sweeps(
 
 
 def run_sweeps(
-    n: int, sweeps, re: torch.Tensor, im: torch.Tensor, low_kernel: bool = True
+    n: int, sweeps, re: torch.Tensor, im: torch.Tensor, low_kernel: bool = True,
+    swap_kernel: bool = True,
 ) -> Pair:
     """Execute a ``compile_sweeps`` plan on (R, C) planes. Kernel sweeps
     update their planes in place. ``low_kernel=False`` also keeps
     ``c64_low_matmul`` off the kernel, so a plan without kernel windows
-    launches no window kernel at all (the sharded GSPMD counterpart)."""
+    launches no window kernel at all (the sharded GSPMD counterpart);
+    ``swap_kernel=False`` keeps the row-swap and copy kernels off too, so
+    such a plan launches no kernel at all (the plain path)."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
@@ -787,7 +795,7 @@ def run_sweeps(
         elif kind == "window":
             re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
         else:
-            re, im = apply_op_ri(n, payload, re, im, low_kernel)
+            re, im = apply_op_ri(n, payload, re, im, low_kernel, swap_kernel)
     return re, im
 
 

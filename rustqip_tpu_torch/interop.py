@@ -13,6 +13,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from rustqip_tpu_torch.engine.apply import _split
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
@@ -23,7 +24,6 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     SparseOp,
     SwapOp,
 )
-from rustqip_tpu_torch.types import MINOR_QUBITS
 
 
 def op_from_reference(op) -> MatrixOp:
@@ -70,16 +70,14 @@ def ops_from_reference(ops: Sequence) -> list:
 
 
 def planes_from_numpy(
-    state: np.ndarray, dtype=torch.float32, device="cpu"
+    state: np.ndarray, dtype=torch.float32, device="cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A flat complex 2^n state -> (R, C) (re, im) planes."""
+    """A flat complex 2^n state -> (R, C) (re, im) planes of ``dtype`` on
+    ``device`` (the card unless the caller passes ``"cpu"``): the state
+    API's split (``engine.apply._split``), then the cast."""
     state = np.asarray(state).reshape(-1)
-    n = state.size.bit_length() - 1
-    m = min(n, MINOR_QUBITS)
-    shape = (1 << (n - m), 1 << m)
-    re = torch.as_tensor(np.ascontiguousarray(state.real).reshape(shape), dtype=dtype)
-    im = torch.as_tensor(np.ascontiguousarray(state.imag).reshape(shape), dtype=dtype)
-    return re.to(device), im.to(device)
+    re, im = _split(state.size.bit_length() - 1, state, device)
+    return re.to(dtype), im.to(dtype)
 
 
 def planes_to_numpy(re: torch.Tensor, im: torch.Tensor) -> np.ndarray:

@@ -73,6 +73,11 @@ class SparseOp:
     def num_indices(self) -> int:
         return len(self.indices)
 
+    def is_permutation(self) -> bool:
+        """True if every row has exactly one entry: a permutation with
+        phases."""
+        return all(len(r) == 1 for r in self.rows)
+
     def __hash__(self) -> int:
         return hash(("SparseOp", self.indices, self.rows))
 
@@ -666,6 +671,14 @@ def op_to_dense(op: MatrixOp) -> np.ndarray:
         mat[np.arange(dim), cols] = v
         return mat
     raise TypeError(f"Unknown op {op!r}")
+
+
+def select_matrix_coords(
+    n: int, indices: Sequence[int], row: int, col: int
+) -> Tuple[int, int]:
+    """Project full-matrix (row, col) onto an op's sub-matrix coordinates
+    (ref matrix_ops.rs:226-242)."""
+    return full_to_sub(n, list(indices), row), full_to_sub(n, list(indices), col)
 
 
 def expand_op_matrix(

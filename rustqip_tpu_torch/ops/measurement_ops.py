@@ -1,7 +1,12 @@
-"""Measurement on (re, im) planes.
+"""Measurement on flat complex states and on (re, im) planes.
 
-Port of the plane functions of ``rustqip_tpu/ops/measurement_ops.py``
-(re-design of ``qip/src/state_ops/measurement_ops.rs``). Probabilities
+Port of ``rustqip_tpu/ops/measurement_ops.py`` (re-design of
+``qip/src/state_ops/measurement_ops.rs``): ``prob_magnitude``,
+``measure_probs``, ``measure_state`` and ``measure`` take a flat complex
+state, the ``*_ri`` functions its planes. A state given as a tensor is
+measured on its own device, one given as a numpy array on ``device`` (the
+card unless the caller passes ``"cpu"``), as in ``engine.apply_op``.
+Probabilities
 always take the planned (R, C) path (``_probs_plan``): one 0/1 column
 matmul, then top-down row reductions whose sizes halve each step. The JAX
 package's off-TPU rank-n reshape would need n axes, past torch's 25-dim
@@ -96,21 +101,45 @@ def _check_indices(n: int, indices) -> Tuple[int, ...]:
     return indices
 
 
-def measure_probs_ri(
-    n: int, indices: Sequence[int], re: torch.Tensor, im: torch.Tensor
-) -> torch.Tensor:
-    """Probability of every outcome of measuring ``indices``
-    (ref measurement_ops.rs:115): shape (2^k,), entry m = P(qubit
-    indices[i] == bit i of m)."""
-    indices = _check_indices(n, indices)
+def _state(state, device) -> torch.Tensor:
+    """``engine.apply._state_tensor``: a complex tensor of ``state`` on its
+    own device (a tensor) or on ``device`` (a numpy array)."""
+    from rustqip_tpu_torch.engine.apply import _state_tensor
+
+    return _state_tensor(state, device)
+
+
+def prob_magnitude(state, device="cuda") -> torch.Tensor:
+    """Total |psi|^2 of a flat complex state (ref measurement_ops.rs:11)."""
+    x = torch.view_as_real(_state(state, device))
+    return (x * x).sum()
+
+
+def _probs_from_sq(n: int, indices: Tuple[int, ...], sq: torch.Tensor) -> torch.Tensor:
+    """Outcome distribution from the |amplitude|^2 of a 2^n state."""
     M_c, row_steps, weights, h, l, R, C = _probs_plan(n, indices)
-    sq = (re * re + im * im).reshape(R, C)
+    sq = sq.reshape(R, C)
     reduced = sq @ torch.as_tensor(M_c, dtype=sq.dtype, device=sq.device)
     for a, b in row_steps:
         cdim = reduced.shape[-1]
         reduced = reduced.reshape(a, 2, b * cdim).sum(dim=1).reshape(-1, cdim)
     flat = reduced.reshape(-1)
     return flat[_outcome_perm(weights, flat.device)]
+
+
+def measure_probs(n: int, indices: Sequence[int], state, device="cuda") -> torch.Tensor:
+    """Probability of every outcome of measuring ``indices`` on a flat
+    complex state (ref measurement_ops.rs:115): shape (2^k,), entry m =
+    P(qubit indices[i] == bit i of m)."""
+    x = _state(state, device)
+    return _probs_from_sq(n, _check_indices(n, indices), x.real * x.real + x.imag * x.imag)
+
+
+def measure_probs_ri(
+    n: int, indices: Sequence[int], re: torch.Tensor, im: torch.Tensor
+) -> torch.Tensor:
+    """``measure_probs`` on (re, im) planes."""
+    return _probs_from_sq(n, _check_indices(n, indices), re * re + im * im)
 
 
 def measure_prob(
@@ -308,24 +337,45 @@ def measure_state_ri(
     """Collapse: zero non-matching amplitudes, scale by 1/sqrt(p)
     (ref measurement_ops.rs:220); ``prob == 0`` leaves the state as is
     (the reference's guard, :230)."""
-    indices = tuple(int(i) for i in indices)
-    outcome, prob = measured
     _, R, C = _geometry(n)
-    prob = float(prob)
-    if not prob > 0:
+    scale = _collapse_scale(measured[1], re.dtype)
+    if scale is None:
         return re.reshape(R, C), im.reshape(R, C)
-    tiny = float(torch.finfo(re.dtype).tiny)
-    scale = 1.0 / np.sqrt(max(np.asarray(prob, dtype=_np_dtype(re)), tiny))
-    mask = _collapse_mask(n, indices, outcome, re.device)
+    mask = _collapse_mask(n, tuple(int(i) for i in indices), measured[0], re.device)
     zero = torch.zeros((), dtype=re.dtype, device=re.device)
     return (
-        torch.where(mask, re.reshape(R, C) * float(scale), zero),
-        torch.where(mask, im.reshape(R, C) * float(scale), zero),
+        torch.where(mask, re.reshape(R, C) * scale, zero),
+        torch.where(mask, im.reshape(R, C) * scale, zero),
     )
 
 
-def _np_dtype(x: torch.Tensor):
-    return np.float32 if x.dtype == torch.float32 else np.float64
+def _collapse_scale(prob, real_dtype: torch.dtype) -> Optional[float]:
+    """1/sqrt(prob) in ``real_dtype``, or None for ``prob == 0`` (the
+    reference's guard: the state stays as it is)."""
+    prob = float(prob)
+    if not prob > 0:
+        return None
+    np_dtype = np.float32 if real_dtype == torch.float32 else np.float64
+    tiny = float(torch.finfo(real_dtype).tiny)
+    return float(1.0 / np.sqrt(max(np.asarray(prob, dtype=np_dtype), tiny)))
+
+
+def measure_state(
+    n: int, indices: Sequence[int], measured: Tuple[int, float], state, device="cuda",
+) -> torch.Tensor:
+    """Collapse a flat complex state (ref measurement_ops.rs:220):
+    ``measured`` is ``(outcome, prob)``; amplitudes that do not match the
+    outcome become 0, the others are scaled by 1/sqrt(prob), and
+    ``prob == 0`` leaves the state as it is (:230). Returns a new flat
+    state."""
+    x = _state(state, device)
+    _, R, C = _geometry(n)
+    scale = _collapse_scale(measured[1], x.real.dtype)
+    if scale is None:
+        return x.reshape(-1).clone()
+    mask = _collapse_mask(n, tuple(int(i) for i in indices), measured[0], x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(mask, x.reshape(R, C) * scale, zero).reshape(-1)
 
 
 #: Most outcomes drawn in one stage: a larger distribution is not copied to
@@ -352,3 +402,49 @@ def sample_outcome(probs: torch.Tensor, generator: torch.Generator) -> int:
     b = sample_outcome(blocks.sum(dim=1, dtype=torch.float64), generator)
     return b * width + sample_outcome(blocks[b], generator)
 
+
+
+def _draw(probs: torch.Tensor, generator, measured: Optional[MeasuredCondition]):
+    """(outcome, prob) of one measurement: forced by ``measured`` (its prob,
+    or the outcome's own when it gives none), else drawn with
+    ``generator`` by ``sample_outcome``."""
+    if measured is not None:
+        outcome = int(measured.measured)
+        prob = measured.prob if measured.prob is not None else float(probs[outcome])
+        return outcome, float(prob)
+    if generator is None:
+        raise CircuitError("measure() needs a generator unless the outcome is forced")
+    outcome = sample_outcome(probs, generator)
+    return outcome, float(probs[outcome])
+
+
+def measure(
+    n: int,
+    indices: Sequence[int],
+    state,
+    generator: Optional[torch.Generator] = None,
+    measured: Optional[MeasuredCondition] = None,
+    device="cuda",
+):
+    """Sample and collapse a flat complex state (ref
+    measurement_ops.rs:190): returns ``(outcome, prob, collapsed state)``.
+    ``measured`` forces the outcome (the ``MeasuredCondition`` path);
+    otherwise ``generator`` (a CPU ``torch.Generator``, the JAX package's
+    PRNG key) is required."""
+    x = _state(state, device)
+    outcome, prob = _draw(measure_probs(n, indices, x), generator, measured)
+    return outcome, prob, measure_state(n, indices, (outcome, prob), x)
+
+
+def measure_ri(
+    n: int,
+    indices: Sequence[int],
+    re: torch.Tensor,
+    im: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    measured: Optional[MeasuredCondition] = None,
+):
+    """``measure`` on (re, im) planes: returns ``(outcome, prob, re, im)``."""
+    outcome, prob = _draw(measure_probs_ri(n, indices, re, im), generator, measured)
+    re, im = measure_state_ri(n, indices, (outcome, prob), re, im)
+    return outcome, prob, re, im

@@ -68,7 +68,7 @@ def test_native_matches_jax_native_and_torch(name, dtype):
     atol = 1e-10 if dtype == np.complex128 else 1e-5
     np.testing.assert_allclose(got, JN.native_apply_op(N, JAX_OPS[name], psi), atol=atol)
     rdt = torch.float64 if dtype == np.complex128 else torch.float32
-    want = planes_to_numpy(*apply_op_ri(N, PORT_OPS[name], *planes_from_numpy(psi, dtype=rdt)))
+    want = planes_to_numpy(*apply_op_ri(N, PORT_OPS[name], *planes_from_numpy(psi, dtype=rdt, device="cpu")))
     np.testing.assert_allclose(got, want, atol=atol)
 
 

@@ -70,7 +70,7 @@ def check_against_reference(op, prec):
     )
     want = np.asarray(er, np.float64) + 1j * np.asarray(ei, np.float64)
     td = torch.float64 if prec == "f64" else torch.float32
-    pr, pi = planes_from_numpy(v, dtype=td)
+    pr, pi = planes_from_numpy(v, dtype=td, device="cpu")
     gr, gi = apply_op_ri(N, op_from_reference(op), pr, pi)
     assert gr.dtype == td and tuple(gr.shape) == (1 << (N - 7), 128)
     got = planes_to_numpy(gr, gi)

@@ -74,12 +74,12 @@ def test_reflection_rank_chunks_match_one_reshape_and_reference(monkeypatch, cap
     er, ei = ref_apply(N, op, jnp.asarray(v.real), jnp.asarray(v.imag))
     want = np.asarray(er) + 1j * np.asarray(ei)
     one = planes_to_numpy(*apply_op_ri(N, op_from_reference(op), *planes_from_numpy(
-        v, dtype=torch.float64)))
+        v, dtype=torch.float64, device="cpu")))
     monkeypatch.setattr(port_apply, "MAX_RESHAPE_RANK", cap)
     _, stages = port_apply._reflection_plan(N, tuple(indices))
     assert (len(stages) > 1) == (cap < 8)  # 7 row-bit runs + the lane axis
     assert all(len(shape) <= cap for shape, _ in stages)
     got = planes_to_numpy(*apply_op_ri(N, op_from_reference(op), *planes_from_numpy(
-        v, dtype=torch.float64)))
+        v, dtype=torch.float64, device="cpu")))
     assert np.abs(got - one).max() <= 1e-12
     assert np.abs(got - want).max() <= TOL["f64"]

@@ -84,7 +84,7 @@ def _ref_run(n, ops, v):
 
 
 def _port_run(n, ops, v, dtype=torch.float64):
-    return planes_to_numpy(*apply_ops_ri(n, ops, *planes_from_numpy(v, dtype=dtype)))
+    return planes_to_numpy(*apply_ops_ri(n, ops, *planes_from_numpy(v, dtype=dtype, device="cpu")))
 
 
 def _op_cases():

@@ -68,7 +68,7 @@ def test_conditioned_wide_swap_on_cuda_matches_cpu(cuda):
     assert row_swap.LAUNCHES["row_swap"] == before[0] + 1
     assert copy_probe.LAUNCHES["plane_copy"] == before[1] + 1
     assert torch.equal(x[0], x0[0]) and torch.equal(x[1], x0[1])
-    want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v)))
+    want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, device="cpu")))
     assert np.abs(got - want).max() == 0.0
 
 
@@ -141,7 +141,7 @@ def test_oracle_ops_on_cuda_match_cpu(cuda, name):
     got = planes_to_numpy(*apply_op_ri(n, op, *x))
     assert copy_probe.LAUNCHES["plane_copy"] == before
     assert torch.equal(x[0], x0[0]) and torch.equal(x[1], x0[1])
-    want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v)))
+    want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, device="cpu")))
     assert np.abs(got - want).max() <= TOL
 
 

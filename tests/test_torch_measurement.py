@@ -31,7 +31,7 @@ def _state(n, seed):
 def test_measure_prob_matches_reference():
     n = 9
     v = _state(n, 5)
-    re, im = planes_from_numpy(v, dtype=torch.float64)
+    re, im = planes_from_numpy(v, dtype=torch.float64, device="cpu")
     for indices in ([0], [2, 4], [8, 1, 3], [7, 8]):
         for m in range(1 << len(indices)):
             got = float(M.measure_prob(n, m, indices, re, im))
@@ -68,7 +68,7 @@ def test_measure_prob_fn_tiers_match_reference(tier):
     n = 8
     amps = _state(n, 6)
     f = _fn_forms(amps)[tier]
-    re, im = planes_from_numpy(amps, dtype=torch.float64)
+    re, im = planes_from_numpy(amps, dtype=torch.float64, device="cpu")
     ref_f = _fn_forms(amps)["scalar" if tier == "scalar" else "vectorized"]
     for indices in ([0], [3, 7], [7, 2, 5]):
         for m in range(1 << len(indices)):
@@ -151,7 +151,7 @@ def test_soft_measure_distribution(monkeypatch, split):
     v = _state(n, 12)
     indices = [4, 0, 2]
     probs = np.asarray(RM.measure_probs(n, indices, jnp.asarray(v)))
-    re, im = planes_from_numpy(v, dtype=torch.float64)
+    re, im = planes_from_numpy(v, dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(M.measure_probs_ri(n, indices, re, im).numpy(), probs,
                                atol=1e-12)
     gen = torch.Generator().manual_seed(3)

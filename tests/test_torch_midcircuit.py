@@ -65,7 +65,7 @@ def _state(n, seed):
 
 
 def _apply_port(n, ops, v):
-    re, im = planes_from_numpy(v, torch.float64)
+    re, im = planes_from_numpy(v, torch.float64, device="cpu")
     for op in ops:
         re, im = port_ra.apply_op_ri(n, op, re, im)
     return planes_to_numpy(re, im)

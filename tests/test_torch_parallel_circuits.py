@@ -205,7 +205,7 @@ def test_measure_functions_match_jax_single_device():
     v /= np.linalg.norm(v)
     for d in (2, 8):
         mesh = _mesh(d)
-        planes = [planes_from_numpy(c, torch.float64) for c in np.split(v, d)]
+        planes = [planes_from_numpy(c, torch.float64, device="cpu") for c in np.split(v, d)]
         re, im = [p[0] for p in planes], [p[1] for p in planes]
         for idx in ((0,), (n - 1, 0), (2, 5, 1, 8), (4, 6)):
             probs = sharded_measure_probs_ri(mesh, n, idx, re, im)

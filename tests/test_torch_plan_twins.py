@@ -137,8 +137,8 @@ def _run_equal(n, ref_ops, kernel, dtype, atol):
     v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
     v /= np.linalg.norm(v)
     got = planes_to_numpy(*port_ra.apply_ops_ri(
-        n, ops, *planes_from_numpy(v, dtype), kernel_ok=kernel))
-    re, im = planes_from_numpy(v, dtype)
+        n, ops, *planes_from_numpy(v, dtype, device="cpu"), kernel_ok=kernel))
+    re, im = planes_from_numpy(v, dtype, device="cpu")
     for op in ops:
         re, im = port_ra.apply_op_ri(n, op, re, im)
     np.testing.assert_allclose(got, planes_to_numpy(re, im), atol=atol, rtol=0)
@@ -272,3 +272,54 @@ def test_28_qubit_plan_budgets():
     assert kinds and set(kinds) == {"kwindow"} and len(kinds) <= 8
     kinds = _kernel_plan_kinds(lambda b: grover_search(b, 28, 0x5A5A5A, iterations=3))
     assert kinds and set(kinds) == {"kwindow"}
+
+
+def test_bench_unfused_shape_one_pass_per_gate():
+    """bench.py's unfused arm (Toffolis on rotating row triples) plans one
+    sweep per gate at n = 28 and its fused arm one kernel window, as in the
+    JAX package; at n = 12 the planned run equals the op-by-op run and the
+    JAX package's, in float64 (1e-10) and on the kernel path in float32
+    (the kernel's plain version here)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_bench", Path(__file__).resolve().parent.parent / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    fused, unfused = bench._build_ops(28, 30, 20)
+    plan = _check_plans(28, unfused)
+    assert len(plan) == 20 and all(len(run) == 1 for _, _, run in plan)
+    fplan = _check_plans(28, fused)
+    assert [k for k, _, _ in fplan] == ["kwindow"]
+
+    n = 12
+    _, small = bench._build_ops(n, 8, 8)
+    _run_equal(n, small, False, torch.float64, 1e-10)
+    _run_equal(n, small, True, torch.float32, 1e-5)
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    v /= np.linalg.norm(v)
+    import jax.numpy as jnp
+
+    jr, ji = ref_ra.apply_ops_ri(n, small, jnp.asarray(v.real), jnp.asarray(v.imag))
+    got = planes_to_numpy(*port_ra.apply_ops_ri(
+        n, ops_from_reference(small), *planes_from_numpy(v, torch.float64, device="cpu")))
+    np.testing.assert_allclose(got, np.asarray(jr) + 1j * np.asarray(ji), atol=1e-10, rtol=0)
+
+
+def test_prefix_salvage_execution_equivalence():
+    """The salvaged-prefix plan (CZ lows alternating with lane-controlled
+    rbf butterflies past the low cap, n = 16) plans to two kernel windows
+    as in the JAX package and runs them right: the kernel path in float32
+    (the kernel's plain version on the CPU) equals the op-by-op run within
+    the JAX test's 2e-4."""
+    n = 16
+    cz = np.diag([1, 1, 1, -1]).astype(complex).reshape(-1)
+    cx = R.make_control_op([n - 3], R.make_matrix_op([5], X))  # rbf bit 3, ctrl ("c", 2)
+    ops = []
+    for _ in range(WINDOW_KERNEL_MAX_LOW + 2):
+        ops += [R.make_matrix_op([n - 2, n - 1], cz), cx]
+    plan = _check_plans(n, ops)
+    assert [k for k, _, _ in plan] == ["kwindow", "kwindow"]
+    _run_equal(n, ops, True, torch.float32, 2e-4)

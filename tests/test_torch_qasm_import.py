@@ -115,3 +115,61 @@ def test_qft_text_of_all_ones_sees_every_statement():
     assert len(acting) == n * (n - 1) // 2 + n // 2
     for i in acting:
         assert err("\n".join(lines[:i] + lines[i + 1:]) + "\n") > 1e-6, lines[i]
+
+
+def _reflection_roundtrip(build):
+    """Export a reflection circuit from both packages (the same text) and
+    import it into the port; returns (original state, imported state with
+    export-time ancillas dropped, JAX package's imported state likewise)."""
+    jb, pb = JB(dtype=F64), PB(dtype=F64, device="cpu")
+    build(jb)
+    build(pb)
+    text = PQ.to_openqasm(pb)
+    assert text == JQ.to_openqasm(jb)
+    assert "exceeds synthesis cap" not in text
+    s1 = np.asarray(pb.calculate_state_with_init([])[0])
+    np.testing.assert_allclose(s1, np.asarray(jb.calculate_state_with_init([])[0]), atol=TOL)
+    out = []
+    for imp in (PQ.circuit_from_qasm(text, builder=PB(dtype=F64, device="cpu")),
+                JQ.circuit_from_qasm(text, builder=JB(dtype=F64))):
+        s2 = np.asarray(imp.builder.calculate_state_with_init([])[0])
+        if s2.size > s1.size:  # export-time ancillas end in |0>
+            s2 = s2.reshape(s1.size, -1)
+            np.testing.assert_allclose(np.abs(s2[:, 1:]), 0.0, atol=1e-9)
+            s2 = s2[:, 0]
+        out.append(s2)
+    np.testing.assert_allclose(out[0], out[1], atol=TOL)
+    return s1, out[0]
+
+
+def test_reflection_qasm_export_roundtrip():
+    """Gate expansion drops the reflection's -1 global phase (the QASM 2.0
+    policy): the imported state equals the original up to one phase."""
+    def build(b):
+        r = b.register(3)
+        r = b.h(r)
+        r = b.t(r)
+        b.apply_reflection(r)
+
+    s1, s2 = _reflection_roundtrip(build)
+    j = int(np.argmax(np.abs(s1)))
+    phase = s1[j] / s2[j]
+    np.testing.assert_allclose(abs(phase), 1.0, atol=1e-9)
+    np.testing.assert_allclose(s2 * phase, s1, atol=1e-9)
+
+
+def test_controlled_reflection_qasm_export_exact():
+    """A controlled reflection's relative phase is observable, and the
+    dense synthesis keeps it: equal up to one phase for the circuit."""
+    def build(b):
+        c, r = b.qubit(), b.register(2)
+        c = b.h(c)
+        r = b.h(r)
+        r = b.t(r)
+        cb = b.condition_with(c)
+        cb.apply_reflection(r)
+        cb.dissolve()
+
+    s1, s2 = _reflection_roundtrip(build)
+    j = int(np.argmax(np.abs(s1)))
+    np.testing.assert_allclose(s2 * (s1[j] / s2[j]), s1, atol=1e-9)

@@ -92,7 +92,7 @@ def test_conditioned_wide_swap_matches_jax(prec):
     er, ei = ref_apply(n, op, jnp.asarray(v.real.astype(npd)), jnp.asarray(v.imag.astype(npd)))
     want = np.asarray(er, np.float64) + 1j * np.asarray(ei, np.float64)
     td = torch.float64 if prec == "f64" else torch.float32
-    pr, pi = planes_from_numpy(v, dtype=td)
+    pr, pi = planes_from_numpy(v, dtype=td, device="cpu")
     keep = (pr.clone(), pi.clone())
     got = planes_to_numpy(*apply_op_ri(n, op_from_reference(op), pr, pi))
     assert np.abs(got - want).max() <= TOL[prec]

@@ -142,7 +142,7 @@ def test_state_snapshot_roundtrip(tmp_path):
     state, _ = b.calculate_state()
     PS.save_state(tmp_path / "a.npz", state)
     np.testing.assert_allclose(JS.load_state(tmp_path / "a.npz"), state, atol=1e-12)
-    re, im = planes_from_numpy(state, dtype=torch.float64)
+    re, im = planes_from_numpy(state, dtype=torch.float64, device="cpu")
     PS.save_state(tmp_path / "b.npz", re, im)
     np.testing.assert_allclose(PS.load_state(tmp_path / "b.npz").reshape(-1), state,
                                atol=1e-12)
@@ -203,3 +203,27 @@ def test_function_gate_refuses_to_serialize(controlled):
             b.apply_fn_matrix(r, lambda row: ((row + 1) % 4, 1.0), tag="inc")
         with pytest.raises(Err, match="Cannot serialize"):
             (JS if B is JB else PS).circuit_to_json(b)
+
+
+def test_reflection_serialize_roundtrip():
+    """A plain and a controlled reflection serialize to the JAX package's
+    text, and the replayed circuit gives the original state (the JAX
+    package's, 1e-10)."""
+    def build(b):
+        c, r = b.qubit(), b.register(3)
+        c = b.h(c)
+        r = b.h(r)
+        r = b.apply_reflection(r)
+        cb = b.condition_with(c)
+        r = cb.apply_reflection(r)
+        cb.dissolve()
+
+    jb, pb = JB(dtype=F64), PB(dtype=F64, device="cpu")
+    build(jb)
+    build(pb)
+    text = PS.circuit_to_json(pb)
+    assert text == JS.circuit_to_json(jb)
+    want = np.asarray(jb.calculate_state_with_init([])[0])
+    np.testing.assert_allclose(pb.calculate_state_with_init([])[0], want, atol=TOL, rtol=0)
+    replayed = PS.builder_from_json(text, device="cpu")
+    np.testing.assert_allclose(replayed.calculate_state_with_init([])[0], want, atol=TOL, rtol=0)

@@ -90,7 +90,7 @@ def test_wide_sparse_matches_reference(name, prec):
     er, ei = ref_apply(n, ref_op, jnp.asarray(v.real.astype(npd)),
                        jnp.asarray(v.imag.astype(npd)))
     want = np.asarray(er, np.float64) + 1j * np.asarray(ei, np.float64)
-    got = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, dtype=td)))
+    got = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, dtype=td, device="cpu")))
     assert np.abs(got - want).max() <= (F64 if prec == "f64" else F32)
 
 
@@ -108,7 +108,7 @@ def test_gather_blocks_and_closed_form(monkeypatch):
     full = np.arange(1 << n)
     want = np.empty_like(v)
     want[(fx[full >> 1] << 1) | (full & 1)] = v
-    got = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, dtype=torch.float64)))
+    got = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, dtype=torch.float64, device="cpu")))
     assert np.abs(got - want).max() <= 1e-12
 
 

@@ -91,7 +91,7 @@ def test_plain_window_matches_reference_interpret(kind):
     ).reshape(-1)
     prog = wk.encode_window(n, seg, ksteps)
     assert kind in prog.kinds
-    pr, pi = planes_from_numpy(v)
+    pr, pi = planes_from_numpy(v, device="cpu")
     out = wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
     assert out[0] is pr and out[1] is pi  # in place
     got = planes_to_numpy(pr, pi)
@@ -126,7 +126,7 @@ def test_step_window_matches_reference_interpret(name):
     ).reshape(-1)
     prog = wk.encode_window(n, seg, ksteps)
     assert set(prog.kinds) == kinds
-    pr, pi = planes_from_numpy(v)
+    pr, pi = planes_from_numpy(v, device="cpu")
     wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
     assert np.abs(planes_to_numpy(pr, pi) - want).max() <= TOL
 
@@ -189,12 +189,12 @@ def test_diag_factor_and_angle_modes_agree(name, monkeypatch):
     n = N
     seg = window_seg_sizes(n, hq)
     v = _state(n, 6)
-    a = planes_from_numpy(v)
+    a = planes_from_numpy(v, device="cpu")
     wk.window_sweep_reference(n, *a, seg, ksteps)
     monkeypatch.setattr(wk, "DIAG_MASK_MAX", 0)
     prog = wk.encode_window(n, seg, ksteps)
     assert all(e[4] == 1 for e in _diag_entries(prog).values())
-    b = planes_from_numpy(v)
+    b = planes_from_numpy(v, device="cpu")
     wk.window_sweep_reference(n, *b, seg, ksteps, prog=prog)
     assert np.abs(planes_to_numpy(*a) - planes_to_numpy(*b)).max() <= TOL
 
@@ -227,20 +227,20 @@ def test_wrapper_cpu_contract():
     hq, ksteps = (0,), [("cbf", 1, _coeffs(9)), ("mix", {(0, 1): 1, (1, 0): 1j})]
     seg = window_seg_sizes(n, hq)
     v = _state(n, 3)
-    a = planes_from_numpy(v)
-    b = planes_from_numpy(v)
+    a = planes_from_numpy(v, device="cpu")
+    b = planes_from_numpy(v, device="cpu")
     before = dict(wk.LAUNCHES)
     wk.window_sweep(n, *a, seg, ksteps)
     wk.window_sweep_reference(n, *b, seg, ksteps)
     assert dict(wk.LAUNCHES) == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(TypeError):
-        wk.window_sweep(n, *planes_from_numpy(v, dtype=torch.float64), seg, ksteps)
+        wk.window_sweep(n, *planes_from_numpy(v, dtype=torch.float64, device="cpu"), seg, ksteps)
     with pytest.raises(ValueError):
-        x = planes_from_numpy(v)
+        x = planes_from_numpy(v, device="cpu")
         wk.window_sweep(n, x[0].reshape(-1), x[1].reshape(-1), seg, ksteps)
     with pytest.raises(ValueError):
-        x = planes_from_numpy(_state(n + 1, 3))
+        x = planes_from_numpy(_state(n + 1, 3), device="cpu")
         wk.window_sweep(n, x[0][:, ::2], x[1][:, ::2], seg, ksteps)
 
 
@@ -248,7 +248,7 @@ def test_c64_low_matmul_is_functional():
     """(xr + i xi) @ B^T, inputs untouched (a wide controlled op reads its
     input again after the inner op ran)."""
     v = _state(12, 4)
-    xr, xi = planes_from_numpy(v)
+    xr, xi = planes_from_numpy(v, device="cpu")
     xr0, xi0 = xr.clone(), xi.clone()
     B = rand_u(7, 10)
     yr, yi = wk.c64_low_matmul(xr, xi, B)
@@ -267,7 +267,7 @@ def test_low_program_is_encoded_once_per_matrix():
     assert wk._low_program(R, rand_u(7, 11)) is not prog
     assert wk._low_program(2 * R, B) is not prog
     v = _state(12, 4)
-    xr, xi = planes_from_numpy(v)
+    xr, xi = planes_from_numpy(v, device="cpu")
     wk.window_sweep(prog.n, xr, xi, prog.seg_sizes, [("low", B)], prog=prog)
     want = (v.reshape(-1, 128) @ B.T).reshape(-1)
     assert np.abs(planes_to_numpy(xr, xi) - want).max() <= TOL

@@ -54,7 +54,7 @@ def test_parity_window_kernel_path_matches_reference_engine(idx):
     want = np.asarray(er) + 1j * np.asarray(ei)
     sweeps = compile_sweeps(n, ops, True, TpuReferenceAdmission())
     assert all(k == "kwindow" for k, _, _ in sweeps), name
-    pr, pi = planes_from_numpy(v)
+    pr, pi = planes_from_numpy(v, device="cpu")
     gr, gi = apply_ops_ri(n, ops, pr, pi, kernel_ok=True,
                           admission=TpuReferenceAdmission())
     assert np.abs(planes_to_numpy(gr, gi) - want).max() <= TOL
