@@ -8,7 +8,13 @@ a checkout: builds the three Hopper kernels from
 ``rustqip_tpu_torch/csrc/`` (``window_sweep.cu``, ``row_swap.cu``,
 ``plane_copy.cu``; one nvcc each, all started together), holds each against
 its plain PyTorch version (the window kernel on the parity windows, the
-row swap on five pair sets, exactly), then runs the main path --
+row swap on five pair sets, exactly). On the clean allocator
+``phase_capacity`` then runs the main path at n = 32 (2 x 16 GiB of
+float32 planes, the largest state one H100 holds): the JAX package's
+single-chip capacity circuit, QFT-32 of the basis state with all bits set
+and a native Grover-32 iteration, each against its closed form on the
+card, with each run's peak memory held to 40 GiB. Then it runs the main
+path --
 ``LocalBuilder`` -> compile -> sweeps (window kernel, row-swap pass) ->
 measurement -- at n = 28 qubits in float32 (2 GiB of state) and checks the
 results against closed forms and against the plain torch paths on the same
@@ -305,6 +311,220 @@ def phase_swap_parity():
                      "rows_moved": rows_moved(n, pairs), "equal": True})
     emit({"phase": "swap_kernel_vs_plain", "n": n, "sets": rows})
     return 0.0
+
+
+N_CAP = 32  # phase_capacity: 2 x 16 GiB of float32 planes on one 80 GB card
+CAP_PEAK_GIB = 40.0  # its bar per run: the 32 GiB state plus 8 GiB of scratch
+CAP_MARKED = 0b10110011100011110000111101011001  # Grover-32's marked value
+
+
+def capacity_circuit(b, n: int, k: int = 4):
+    """The JAX package's single-chip capacity circuit
+    (``benches/capacity_single_chip.py:50-63``) on the builder ``b`` of
+    either package: H on all n qubits, CNOT(0, n-1) across the row/lane
+    seam, ``measure`` of the last k qubits (sample and collapse), then
+    ``measure_stochastic`` of the same qubits. Returns both handles."""
+    r = b.h(b.register(n))
+    rest, q0 = b.split_first_qubit(r)
+    rest, qlast = b.split_last_qubit(rest)
+    q0, qlast = b.cnot(q0, qlast)
+    r = b.merge_registers([q0, rest, qlast])
+    res = b.split_register_relative(r, range(n - k))
+    head, mreg = res.selected, res.remaining
+    mreg, h_meas = b.measure(mreg)
+    mreg, h_probs = b.measure_stochastic(mreg)
+    b.merge_registers([head, mreg])
+    return h_meas, h_probs
+
+
+def grover_closed_err(re, im, n: int, marked_index: int) -> float:
+    """Largest relative error of one Grover iteration with native
+    diffusion from |+>^n against its closed form: the marked amplitude
+    (3 - 4/N)/sqrt(N), every other (1 - 4/N)/sqrt(N), no imaginary part.
+    On the card, in row blocks of 2^24 elements."""
+    N = 1 << n
+    a0 = N ** -0.5
+    other, marked = a0 * (1 - 4 / N), a0 * (3 - 4 / N)
+    R, C = re.shape
+    rows = max(1, (1 << 24) // C)
+    mr, mc = divmod(marked_index, C)
+    err = abs(re[mr, mc].item() / marked - 1)
+    for r0 in range(0, R, rows):
+        d = (re[r0:r0 + rows].double() - other).abs()
+        if r0 <= mr < r0 + rows:
+            d[mr - r0, mc] = 0.0
+        err = max(err, d.max().item() / other, im[r0:r0 + rows].abs().max().item() / other)
+    return err
+
+
+def phase_capacity():
+    """The main path at the card's capacity: ``LocalBuilder(dtype="f32",
+    device="cuda")`` -> ``compile()`` -> ``CompiledCircuit.run`` at
+    n = 32 (2 x 16 GiB of float32 planes) from a basis state, on a clean
+    allocator: the JAX package's capacity circuit, QFT-32 of the basis
+    state with all bits set, and one Grover-32 iteration with native
+    diffusion, each against its closed form on the card. Per circuit: the
+    plan, the launches of a run with every counter zeroed just before,
+    the peak memory of that run and of the timed runs (held to
+    ``CAP_PEAK_GIB``), ms per run and its bound: one write of both planes
+    (the one-hot start), a read and a write per sweep, a read per
+    probability pass and a read and a write per collapse, at the HBM
+    rate."""
+    import gc
+
+    import torch
+
+    from rustqip_tpu_torch.algos import grover_iteration, qfft
+    from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.engine.compile import MeasureEntry
+    from rustqip_tpu_torch.prelude import LocalBuilder
+
+    n = N_CAP
+    t0 = time.perf_counter()
+    gib = float(1 << 30)
+    state_bytes = 2 * 4 << n  # both float32 planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "capacity_env", "n": n, "state_gib": state_bytes / gib,
+          "free_gib": free / gib, "total_gib": total / gib, "peak_bar_gib": CAP_PEAK_GIB,
+          "jax_package_point": "n = 30, 2 x 4 GiB of float32 planes on one 16 GB TPU v5e "
+                               "(benches/capacity_single_chip.py): the JAX package's size, "
+                               "not a measurement of this card"})
+    pass_ms = state_bytes / HBM_BYTES_PER_S * 1e3
+    qft_input = (1 << n) - 1
+    marked_index = sum(((CAP_MARKED >> j) & 1) << (n - 1 - j) for j in range(n))
+
+    def check_capacity(re, im, res):
+        (outcome, prob), probs = res
+        p = probs.double().cpu()
+        peak, total_p = float(p[outcome]), float(p.sum())
+        uniform = 1.0 / p.numel()
+        if not (abs(prob - uniform) < 0.05 * uniform and int(p.argmax()) == outcome
+                and abs(peak - 1) < 1e-3 and abs(total_p - 1) < 1e-3):
+            raise AssertionError(f"capacity-32: outcome {outcome} p {prob}, after the "
+                                 f"collapse {p.tolist()}")
+        return max(abs(peak - 1), abs(total_p - 1)), {
+            "outcome": outcome, "outcome_prob": prob, "post_collapse_peak": peak,
+            "post_collapse_sum": total_p}
+
+    def check_qft(re, im, res):
+        err = qft_closed_err([re], [im], n, qft_input)
+        if err > 1e-8:
+            raise AssertionError(f"QFT-32: max |amp - closed form| = {err}")
+        return err, {}
+
+    def check_grover(re, im, res):
+        err = grover_closed_err(re, im, n, marked_index)
+        if err > 1e-4:
+            raise AssertionError(f"Grover-32: relative error {err}")
+        return err, {}
+
+    def grover(b):
+        grover_iteration(b, b.h(b.register(n)), CAP_MARKED, native_diffusion=True)
+
+    circuits = [
+        ("capacity32", lambda b: capacity_circuit(b, n), 0, check_capacity),
+        ("qft32_all_ones", lambda b: qfft(b, b.register(n)), qft_input, check_qft),
+        ("grover32_iteration_native", grover, 0, check_grover),
+    ]
+    total, kind_total, parts = Counter(), Counter(), {}
+    for name, build, init, check in circuits:
+        b = LocalBuilder(dtype="f32", device="cuda")
+        build(b)
+        t_plan = time.perf_counter()
+        cc = b.compile()
+        plan_s = time.perf_counter() - t_plan
+        counts = cc.sweep_counts()
+        windows = [[list(p[0]), [st[0] for st in p[1]]] for s in cc.sweeps
+                   if not isinstance(s, MeasureEntry) for kind, p, _ in s if kind == "kwindow"]
+        passes = 1 + 2 * sum(counts.values()) + sum(
+            1 if s.stochastic else 3 for s in cc.sweeps if isinstance(s, MeasureEntry))
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        re, im, res = cc.run(init, generator=gen)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / gib
+        launches = read_launches()
+        kinds = dict(wk.KIND_LAUNCHES)
+        err, extra = check(re, im, res)
+        del re, im, res
+        if launches["window_sweep"] <= 0 or (name.startswith("qft") and launches["row_swap"] <= 0):
+            raise AssertionError(f"{name}: the capacity path launched {launches}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: cc.run(init, generator=gen))
+        timed_peak = torch.cuda.max_memory_allocated() / gib
+        if max(peak, timed_peak) > CAP_PEAK_GIB:
+            raise AssertionError(f"{name}: peak {peak} / {timed_peak} GiB > {CAP_PEAK_GIB}")
+        capacity_breakdown(name, cc, init, pass_ms, parts)
+        bound = passes * pass_ms
+        emit({"phase": "capacity", "circuit": name, "n": n, "plan_s": plan_s,
+              "sweeps": sum(counts.values()), "sweep_counts": counts,
+              "kernel_windows": windows, "kernel_launches": launches, "kind_launches": kinds,
+              "run_ms": ms, "bound_ms": bound, "bound_by": "bytes", "bound_passes": passes,
+              "bound_share": bound / ms, "check_err": err, **extra,
+              "peak_gib": peak, "timed_peak_gib": timed_peak,
+              "state_gib": state_bytes / gib})
+        total.update(launches)
+        kind_total.update(kinds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "capacity_done", "seconds": time.perf_counter() - t0})
+    return dict(total), dict(kind_total), parts
+
+
+def capacity_breakdown(name, cc, init, pass_ms, parts):
+    """Where one capacity run's time goes: each sweep of its plan alone
+    (``observe.profile_passes``, on the profiler's own planes, in place),
+    each beside its bound (a kernel window's live strips by
+    ``window_bound``, a plain sweep a read and a write of both planes);
+    the one-hot start; for QFT-32 the row pairs (``row_swap``) and the
+    cross pairs of its swap pass alone; for the capacity circuit one
+    probability pass and one collapse. Adds QFT-32's window and row-swap
+    times and bounds to ``parts`` for the ``kernels`` line."""
+    import torch
+
+    from rustqip_tpu_torch.engine import row_swap
+    from rustqip_tpu_torch.engine.apply import _cross_swap_planes, _swap_schedule
+    from rustqip_tpu_torch.engine.compile import MeasureEntry
+    from rustqip_tpu_torch.ops.measurement_ops import _collapse_, measure_probs_ri
+    from rustqip_tpu_torch.utils import observe
+
+    n = cc.n
+    sweeps = []
+    for (info, [(kind, payload, _)]), t in zip(observe.sweep_plans(cc),
+                                               observe.profile_passes(cc)):
+        bound = window_bound(payload[2], n)[0] if kind == "kwindow" else 2 * pass_ms
+        sweeps.append({"kind": kind, "op": info["kind"], "row_bits": info.get("row_bits"),
+                       "steps": info["steps"], "ms": t["ms"], "bound_ms": bound,
+                       "bound_share": bound / t["ms"]})
+    row = {"phase": "capacity_breakdown", "circuit": name, "n": n, "sweeps": sweeps,
+           "one_hot_ms": cuda_ms(lambda: cc._one_hot(init)), "one_hot_bound_ms": pass_ms}
+    kw = [s for s in sweeps if s["kind"] == "kwindow"]
+    row["kernel_windows_ms"] = sum(s["ms"] for s in kw)
+    row["kernel_windows_bound_ms"] = sum(s["bound_ms"] for s in kw)
+    re, im = cc._one_hot(init)
+    for seg in cc.sweeps:
+        if isinstance(seg, list):
+            for kind, op, _ in seg:
+                if kind == "op" and type(op).__name__ == "SwapOp":
+                    cross, rowp, _, _ = _swap_schedule(n, op)
+                    row["row_swap_ms"] = cuda_ms(lambda: row_swap.row_swap(n, rowp, re, im))
+                    row["row_swap_bound_ms"] = (2 * 2 * rows_moved(n, rowp) * 128 * 4
+                                                / HBM_BYTES_PER_S * 1e3)
+                    row["cross_pairs_ms"] = cuda_ms(
+                        lambda: _cross_swap_planes(n, cross, [re, im], inplace=True))
+        elif isinstance(seg, MeasureEntry) and not seg.stochastic:
+            row["probs_ms"] = cuda_ms(lambda: measure_probs_ri(n, seg.indices, re, im))
+            row["collapse_ms"] = cuda_ms(lambda: _collapse_(n, seg.indices, (0, 1.0), [re, im]))
+    del re, im
+    emit(row)
+    if name.startswith("qft"):
+        parts.update({k: row[k] for k in ("kernel_windows_ms", "kernel_windows_bound_ms",
+                                          "row_swap_ms", "row_swap_bound_ms")})
 
 
 def _builder(kernel: bool):
@@ -1146,10 +1366,13 @@ def qft_closed_err(res, ims, n, x):
     size, amp = 1 << n, 2.0 ** (-n / 2)
     re = torch.cat([r.reshape(-1) for r in res]) if len(res) > 1 else res[0].reshape(-1)
     im = torch.cat([i.reshape(-1) for i in ims]) if len(ims) > 1 else ims[0].reshape(-1)
+    # k * x mod 2^n in halves of x: no int64 product passes 2^49 at n = 32
+    x_hi, x_lo = (x % size) >> 16, x & 0xFFFF
     err = 0.0
     for lo in range(0, size, 1 << 24):
         k = torch.arange(lo, min(size, lo + (1 << 24)), device=re.device, dtype=torch.int64)
-        ph = ((k * x) % size).to(torch.float64) * (2 * math.pi / size)
+        kx = ((k * x_hi) % size * 65536 + k * x_lo) % size
+        ph = kx.to(torch.float64) * (2 * math.pi / size)
         err = max(err,
                   (re[lo:lo + k.numel()].double() - amp * torch.cos(ph)).abs().max().item(),
                   (im[lo:lo + k.numel()].double() - amp * torch.sin(ph)).abs().max().item())
@@ -1987,7 +2210,10 @@ def main() -> int:
     phase_build()
     parity_err = phase_parity()
     swap_err = phase_swap_parity()
+    cap_launches, cap_kinds, cap_parts = phase_capacity()
     rows, launches, kind_launches, ccs = phase_main()
+    launches = {k: launches[k] + cap_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + Counter(cap_kinds))
     _, oracle_launches, oracle_kinds, oracle_ccs, g_re, g_im, solution, p_solution = \
         phase_oracles()
     ccs.update(oracle_ccs)
@@ -2023,6 +2249,9 @@ def main() -> int:
             "plain_ms": pms,
             "bound_ms": sum(bound.values()),
             "bound_by": max(bound, key=bound.get),
+            # QFT-32's seven kernel windows, each alone, at the card's capacity
+            "capacity_n32": {"ms": cap_parts["kernel_windows_ms"],
+                             "bound_ms": cap_parts["kernel_windows_bound_ms"]},
             # no one PyTorch call computes a window's step chain; the lone
             # matrix steps' library calls are in the step_breakdown rows
             "library_ms": None,
@@ -2041,6 +2270,9 @@ def main() -> int:
             "bound_ms": swap["bound_ms"],
             "bound_by": "bytes",
             "library_ms": swap["library_ms"],
+            # QFT-32's nine row pairs at the card's capacity
+            "capacity_n32": {"ms": cap_parts["row_swap_ms"],
+                             "bound_ms": cap_parts["row_swap_bound_ms"]},
         },
         {
             # ms: a fresh copy with one strip per thread

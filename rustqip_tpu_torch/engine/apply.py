@@ -31,6 +31,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from rustqip_tpu_torch import types as _types
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
@@ -44,6 +45,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     expand_op_matrix,
     fn_values,
 )
+from rustqip_tpu_torch.ops.measurement_ops import _fresh
 from rustqip_tpu_torch.types import MINOR_QUBITS
 from rustqip_tpu_torch.utils.bits import move_bits
 
@@ -509,40 +511,62 @@ def _split_swap_pairs(n: int, op):
     return cross, same
 
 
-def _cross_swap_planes(n: int, cross, planes):
-    """Exchange k (row qubit, col qubit) pairs in one staged pass:
-    col-relabel, block transpose (top-k row bits <-> low-k col bits),
-    col-relabel back. Requires the cross row qubits to be exactly the top
-    k rows (``_cross_swap_applicable``)."""
-    m, R, C = _geometry(n)
+def _owned_plane(x: torch.Tensor, R: int, C: int, inplace: bool) -> torch.Tensor:
+    """The contiguous (R, C) plane a pass updates in place: ``x`` itself
+    when its caller owns it (``inplace``), else a fresh copy, so that ``x``
+    stays as it was."""
+    if inplace:
+        return x.reshape(R, C).contiguous()
+    return _fresh(x, R, C)
+
+
+@lru_cache(maxsize=64)
+def _cross_swap_perm(n: int, cross: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+    """The flat (2^k * C,) source index of each element of one row group:
+    for a middle row index j the 2^k rows {i * (R >> k) + j} are closed
+    under the exchange of the top k row bits with the low k lane bits, and
+    each group moves the same way. The table is the JAX package's staged
+    pass (col relabel, block transpose, col relabel back) applied to the
+    indices of one group."""
+    m, _, C = _geometry(n)
     n_m = n - m
-    cross = sorted(cross)
+    k = len(cross)
+    staged = [b for _, b in cross]
+    parked = [q for q in range(n_m, n) if q not in staged]
+    layout1 = parked + staged
+    slot_of = {q: n_m + s for s, q in enumerate(layout1)}
+    layout2 = [n - k + staged.index(p) if p in staged else slot_of[p]
+               for p in range(n_m, n)]
+    g = np.arange((1 << k) * C).reshape(1 << k, C)[:, _col_relabel_table(n, layout1)]
+    g = g.reshape(1 << k, C >> k, 1 << k).transpose(2, 1, 0).reshape(1 << k, C)
+    return np.ascontiguousarray(g[:, _col_relabel_table(n, layout2)].reshape(-1))
+
+
+def _cross_swap_planes(n: int, cross, planes, inplace: bool = False):
+    """Exchange k (row qubit, col qubit) pairs: the top k row bits with
+    the low k lane bits after the lanes are relabelled. Requires the cross
+    row qubits to be exactly the top k rows (``_cross_swap_applicable``).
+    Row groups (``_cross_swap_perm``) move in chunks of ``PASS_BLOCK``
+    elements, each read, permuted and written back: in place when the
+    caller owns the planes (``inplace``), else on copies. Exact: elements
+    only move."""
+    m, R, C = _geometry(n)
+    cross = tuple(sorted(cross))
     k = len(cross)
     if [a for a, _ in cross] != list(range(k)):
         raise CircuitError("cross swap needs the top row qubits")
-    cols_all = list(range(n_m, n))
-    staged = [b for _, b in cross]
-    parked = [q for q in cols_all if q not in staged]
-    layout1 = parked + staged
-    slot_of = {q: n_m + s for s, q in enumerate(layout1)}
-    layout2 = []
-    for s in range(m):
-        p = n_m + s
-        if p in staged:
-            layout2.append(n - k + staged.index(p))
-        else:
-            layout2.append(slot_of[p])
-    t1 = _col_relabel_table(n, layout1)
-    t2 = _col_relabel_table(n, layout2)
+    G = 1 << k
+    step = max(1, _types.PASS_BLOCK // (G * C))
     outs = []
     for x in planes:
-        x = x.reshape(R, C)[:, torch.as_tensor(t1, device=x.device)]
-        x = (
-            x.reshape(1 << k, R >> k, C >> k, 1 << k)
-            .permute(3, 1, 2, 0)
-            .reshape(R, C)
-        )
-        outs.append(x[:, torch.as_tensor(t2, device=x.device)])
+        x = _owned_plane(x, R, C, inplace)
+        perm = torch.as_tensor(_cross_swap_perm(n, cross), device=x.device)
+        groups = x.view(G, R >> k, C)
+        for j0 in range(0, R >> k, step):
+            blk = groups[:, j0:j0 + step]
+            src = blk.transpose(0, 1).reshape(-1, G * C)
+            blk.copy_(src[:, perm].reshape(-1, G, C).transpose(0, 1))
+        outs.append(x)
     return outs
 
 
@@ -724,14 +748,40 @@ def _reflection_sum_2d(n: int, indices, x2d: torch.Tensor):
     return s, None
 
 
-def _apply_reflection_2d(n: int, op, x2d: torch.Tensor) -> torch.Tensor:
+def _apply_reflection_2d(n: int, op, x2d: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """``psi -> 2*mean_Q(psi) - psi`` blockwise on the (R, C) view; the
-    operator is real, so each (re, im) plane takes the same transform."""
-    s, shape = _reflection_sum_2d(n, op.indices, x2d)
+    operator is real, so each (re, im) plane takes the same transform.
+    The sum runs over the op's row bits first (a keepdim reduction: one
+    row of 128 lanes for an op on every row qubit) and then over its
+    lanes (one matmul against a 0/1 matrix on the reduced tensor; for
+    lane qubits alone, in row blocks of ``PASS_BLOCK`` elements); the
+    plane is then updated as ``x.mul_(-1).add_(scale * s)``: in place
+    when the caller owns it (``inplace``), else on a copy. A plan of more
+    than one reshape stage (more than 24 row-bit runs) takes the staged
+    sums of ``_reflection_sum_2d``, whose temporaries are plane-sized."""
+    _, R, C = _geometry(n)
+    B, stages = _reflection_plan(n, tuple(op.indices))
     scale = 2.0 / (1 << op.num_indices)
-    if shape is not None:
-        return (scale * s - x2d.reshape(shape)).reshape(x2d.shape)
-    return scale * s - x2d
+    if len(stages) > 1:
+        s, shape = _reflection_sum_2d(n, op.indices, x2d)
+        out = (scale * s - x2d.reshape(shape)).reshape(R, C)
+        return _owned_plane(x2d, R, C, True).copy_(out) if inplace else out
+    x = _owned_plane(x2d, R, C, inplace)
+    lanes = _const(B, x) if B is not None else None
+    if not stages:
+        step = max(1, _types.PASS_BLOCK // C)
+        for r0 in range(0, R, step):
+            blk = x[r0:r0 + step]
+            s = blk @ lanes
+            blk.mul_(-1).add_(s, alpha=scale)
+        return x
+    (shape, axes), = stages
+    view = x.view(shape)
+    s = torch.sum(view, dim=axes, keepdim=True)
+    if lanes is not None:
+        s = s @ lanes
+    view.mul_(-1).add_(s, alpha=scale)
+    return x
 
 
 def _reindex_op(op, new_indices: Tuple[int, ...]):

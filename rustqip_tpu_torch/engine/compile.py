@@ -36,8 +36,8 @@ from rustqip_tpu_torch.engine.real_apply import (
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.ops.matrix_ops import MatrixOp, op_fingerprint
 from rustqip_tpu_torch.ops.measurement_ops import (
+    _collapse_,
     measure_probs_ri,
-    measure_state_ri,
     sample_outcome,
 )
 from rustqip_tpu_torch.types import TORCH_REAL, real_dtype_of
@@ -305,7 +305,17 @@ class CompiledCircuit:
         circuit's device. ``results`` holds ``(outcome, prob)`` for
         collapsing measurements and a probability tensor for stochastic
         ones. ``forced`` maps measurement ordinal -> outcome or
-        ``(outcome, prob)`` (the MeasuredCondition path)."""
+        ``(outcome, prob)`` (the MeasuredCondition path).
+
+        The run owns its planes, made from ``initial_index`` on the device
+        or copied from ``initial_state``: kernel sweeps, swaps, reflections
+        and collapses update them in place, and every other plain pass of
+        such circuits works in blocks of ``types.PASS_BLOCK`` elements, so
+        from ``initial_index`` a float32 run at n = 32 (32 GiB of planes)
+        peaks near 32 GiB on the card. ``initial_state`` is a host array
+        of 2^n complex amplitudes (16 * 2^n bytes in complex128: 4 GiB at
+        n = 28, 64 GiB at n = 32), moved to the device whole: it serves
+        the smaller sizes."""
         if generator is None:
             generator = torch.Generator()
             generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
@@ -316,8 +326,9 @@ class CompiledCircuit:
         if initial_state is not None:
             arr = np.asarray(initial_state).reshape(R, C)
             td = TORCH_REAL[self.rdtype]
-            re = torch.as_tensor(np.ascontiguousarray(arr.real), dtype=td).to(self.device)
-            im = torch.as_tensor(np.ascontiguousarray(arr.imag), dtype=td).to(self.device)
+            # copies: the run updates its planes in place
+            re = torch.tensor(np.ascontiguousarray(arr.real), dtype=td, device=self.device)
+            im = torch.tensor(np.ascontiguousarray(arr.imag), dtype=td, device=self.device)
         else:
             re, im = self._one_hot(initial_index)
         results: List = []
@@ -334,18 +345,16 @@ class CompiledCircuit:
                     prob = float(probs[outcome])
                     if fpmask[m_i]:
                         prob = float(np.asarray(fprobs[m_i], dtype=self.rdtype))
-                    re, im = measure_state_ri(
-                        self.n, seg.indices, (outcome, prob), re, im
-                    )
+                    re, im = _collapse_(self.n, seg.indices, (outcome, prob), [re, im])
                     results.append((outcome, prob))
                 m_i += 1
             elif isinstance(seg, tuple):
                 for _ in range(seg[1]):
-                    re, im = run_sweeps(self.n, seg[2], re, im)
+                    re, im = run_sweeps(self.n, seg[2], re, im, inplace=True)
             else:
-                re, im = run_sweeps(self.n, seg, re, im)
+                re, im = run_sweeps(self.n, seg, re, im, inplace=True)
             if self._check_norm:
-                _norm_check_cb(torch.sum(re * re + im * im), s_i, self._norm_tol)
+                _norm_check_cb(measure_probs_ri(self.n, (), re, im)[0], s_i, self._norm_tol)
         return re, im, tuple(results)
 
     def run_complex(
@@ -355,7 +364,11 @@ class CompiledCircuit:
         initial_state: Optional[np.ndarray] = None,
         forced: Optional[dict] = None,
     ):
-        """Execute and fetch the final state as a host complex array."""
+        """Execute and fetch the final state as a host complex array: a
+        complex128 copy of 16 * 2^n bytes (4 GiB at n = 28, 64 GiB at
+        n = 32) before the cast to the circuit's dtype, so it serves the
+        smaller sizes; at capacity read the planes of ``run`` on the
+        device."""
         re, im, results = self.run(initial_index, generator, initial_state, forced)
         state = re.cpu().numpy().astype(np.complex128).reshape(-1)
         state = state + 1j * im.cpu().numpy().reshape(-1)

@@ -185,13 +185,17 @@ _SWAP2 = np.array(
 
 def apply_op_ri(
     n: int, op: MatrixOp, re: torch.Tensor, im: torch.Tensor,
-    low_kernel: bool = True, swap_kernel: bool = True,
+    low_kernel: bool = True, swap_kernel: bool = True, inplace: bool = False,
 ) -> Pair:
     """Apply one gate op to the (R, C) (re, im) planes of a 2^n state.
     ``low_kernel=False`` keeps a dense op on the lane qubits off the window
     kernel (``c64_low_matmul``'s plain matmuls); ``swap_kernel=False``
     keeps a swap's row pairs off the row-swap kernel
-    (``row_swap_reference``) and a controlled swap off ``plane_copy``."""
+    (``row_swap_reference``) and a controlled swap off ``plane_copy``.
+    ``inplace`` says that the caller owns the planes: a swap's cross pairs
+    and a reflection then update them in place, in bounded scratch;
+    otherwise they work on copies (the row-swap kernel updates its planes
+    in place either way)."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     if isinstance(op, PhaseProductOp):
@@ -205,7 +209,7 @@ def apply_op_ri(
     if isinstance(op, SwapOp):
         cross, rowp, colp, mixed = _swap_schedule(n, op)
         if cross:
-            re, im = _cross_swap_planes(n, cross, [re, im])
+            re, im = _cross_swap_planes(n, cross, [re, im], inplace)
         if rowp:
             swap = row_swap.row_swap if swap_kernel else row_swap.row_swap_reference
             re, im = swap(n, rowp, re, im)
@@ -219,7 +223,8 @@ def apply_op_ri(
     if isinstance(op, FnOp):
         return _fn_apply_planes(n, op, re, im)
     if isinstance(op, ReflectionOp):
-        return _apply_reflection_2d(n, op, re), _apply_reflection_2d(n, op, im)
+        return (_apply_reflection_2d(n, op, re, inplace),
+                _apply_reflection_2d(n, op, im, inplace))
     raise TypeError(f"Unknown op {op!r}")
 
 
@@ -776,14 +781,15 @@ def compile_sweeps(
 
 def run_sweeps(
     n: int, sweeps, re: torch.Tensor, im: torch.Tensor, low_kernel: bool = True,
-    swap_kernel: bool = True,
+    swap_kernel: bool = True, inplace: bool = False,
 ) -> Pair:
     """Execute a ``compile_sweeps`` plan on (R, C) planes. Kernel sweeps
     update their planes in place. ``low_kernel=False`` also keeps
     ``c64_low_matmul`` off the kernel, so a plan without kernel windows
     launches no window kernel at all (the sharded GSPMD counterpart);
     ``swap_kernel=False`` keeps the row-swap and copy kernels off too, so
-    such a plan launches no kernel at all (the plain path)."""
+    such a plan launches no kernel at all (the plain path). ``inplace``
+    (the caller owns the planes) goes to ``apply_op_ri``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
@@ -795,7 +801,7 @@ def run_sweeps(
         elif kind == "window":
             re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
         else:
-            re, im = apply_op_ri(n, payload, re, im, low_kernel, swap_kernel)
+            re, im = apply_op_ri(n, payload, re, im, low_kernel, swap_kernel, inplace)
     return re, im
 
 

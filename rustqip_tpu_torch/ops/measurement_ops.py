@@ -7,10 +7,14 @@ state, the ``*_ri`` functions its planes. A state given as a tensor is
 measured on its own device, one given as a numpy array on ``device`` (the
 card unless the caller passes ``"cpu"``), as in ``engine.apply_op``.
 Probabilities
-always take the planned (R, C) path (``_probs_plan``): one 0/1 column
-matmul, then top-down row reductions whose sizes halve each step. The JAX
-package's off-TPU rank-n reshape would need n axes, past torch's 25-dim
-limit for CUDA reductions at n = 28.
+always take the planned (R, C) path (``_probs_plan``), one row block of
+``types.PASS_BLOCK`` elements at a time: a 0/1 column matmul, then one sum
+over the block's unmeasured row-bit runs. The JAX package's off-TPU
+rank-n reshape would need n axes, past torch's 25-dim limit for CUDA
+reductions at n = 28. A collapse works in place by row block
+(``_collapse_``): the public functions copy their input first, and
+``CompiledCircuit.run`` collapses the planes it owns, so at n = 32 no
+pass holds a second plane-sized tensor.
 
 Sampling takes an explicit ``torch.Generator`` (a CPU generator: the
 outcome distribution, or for more than 2^24 outcomes its block sums and one
@@ -36,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rustqip_tpu_torch import types as _types
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.types import MINOR_QUBITS
 from rustqip_tpu_torch.utils.bits import move_bits
@@ -56,15 +61,16 @@ def _geometry(n: int) -> Tuple[int, int, int]:
 
 @lru_cache(maxsize=256)
 def _probs_plan(n: int, indices: Tuple[int, ...]):
-    """Host-side plan: column-reduction matrix, row-reduction order, and
-    the weights that build the final outcome-order permutation
-    (``_outcome_perm``)."""
+    """Host-side plan: the column-reduction matrix, the weights that build
+    the final outcome-order permutation (``_outcome_perm``), and the
+    measured row and lane qubit counts. The row reduction is per block
+    (``_block_plan``)."""
     m, R, C = _geometry(n)
     k = len(indices)
     srt = sorted(indices)
-    high = [q for q in srt if q < n - m]
+    h = sum(1 for q in srt if q < n - m)
     low = [q for q in srt if q >= n - m]
-    h, l = len(high), len(low)
+    l = len(low)
     cols = np.arange(C)
     pattern = np.zeros(C, dtype=np.int64)
     for t, q in enumerate(low):
@@ -72,15 +78,8 @@ def _probs_plan(n: int, indices: Tuple[int, ...]):
         pattern |= bit << (l - 1 - t)
     M_c = np.zeros((C, 1 << l), dtype=np.float64)
     M_c[cols, pattern] = 1.0
-    non_measured = [q for q in range(n - m) if q not in high]
-    remaining = list(range(n - m))
-    steps = []
-    for q in non_measured:
-        ax = remaining.index(q)
-        steps.append((1 << ax, 1 << (len(remaining) - ax - 1)))
-        remaining.remove(q)
     weights = tuple(1 << (k - 1 - srt.index(q)) for q in indices)
-    return M_c, tuple(steps), weights, h, l, R, C
+    return M_c, weights, h, l, R, C
 
 
 def _outcome_perm(weights: Tuple[int, ...], device) -> torch.Tensor:
@@ -115,15 +114,58 @@ def prob_magnitude(state, device="cuda") -> torch.Tensor:
     return (x * x).sum()
 
 
-def _probs_from_sq(n: int, indices: Tuple[int, ...], sq: torch.Tensor) -> torch.Tensor:
-    """Outcome distribution from the |amplitude|^2 of a 2^n state."""
-    M_c, row_steps, weights, h, l, R, C = _probs_plan(n, indices)
-    sq = sq.reshape(R, C)
-    reduced = sq @ torch.as_tensor(M_c, dtype=sq.dtype, device=sq.device)
-    for a, b in row_steps:
-        cdim = reduced.shape[-1]
-        reduced = reduced.reshape(a, 2, b * cdim).sum(dim=1).reshape(-1, cdim)
-    flat = reduced.reshape(-1)
+@lru_cache(maxsize=256)
+def _block_plan(n: int, indices: Tuple[int, ...], rows: int):
+    """How one block of ``rows`` rows (a power of two, aligned) reduces:
+    the view of its lane-reduced squares that exposes each run of its row
+    bits as one axis (then the 2^l measured-lane outcomes), the axes of the
+    runs that are not measured (summed away), and the measured row qubits
+    above the block, whose bits in the block's index say where its
+    2^(h_in + l) partial sums go."""
+    n_m = n - _geometry(n)[0]
+    b = rows.bit_length() - 1
+    measured = set(indices)
+    l = sum(1 for q in indices if q >= n_m)
+    runs: list = []  # [bit-run length, measured?], most significant first
+    for q in range(n_m - b, n_m):
+        if runs and runs[-1][1] == (q in measured):
+            runs[-1][0] += 1
+        else:
+            runs.append([1, q in measured])
+    shape = tuple(1 << L for L, _ in runs) + (1 << l,)
+    axes = tuple(i for i, (_, mem) in enumerate(runs) if not mem)
+    above = tuple(q for q in sorted(indices) if q < n_m - b)
+    return shape, axes, above
+
+
+def _probs_blocked(n: int, indices: Tuple[int, ...], re: torch.Tensor,
+                   im: torch.Tensor) -> torch.Tensor:
+    """Outcome distribution of the (R, C) planes ``re``, ``im`` (real
+    planes, or the real and imaginary views of one complex plane), in
+    row blocks of ``PASS_BLOCK`` elements: each block is squared, reduced
+    over the lanes by the 0/1 matrix ``M_c`` and over its unmeasured row
+    bits, and added into the outcomes its measured row bits above the
+    block select. Scratch is one block whatever n and k are; the result
+    equals the whole-state reduction up to the order of summation."""
+    M_c, weights, h, l, R, C = _probs_plan(n, indices)
+    rows = min(R, max(1, _types.PASS_BLOCK // C))
+    shape, axes, above = _block_plan(n, indices, rows)
+    n_m, b = R.bit_length() - 1, rows.bit_length() - 1
+    mc = torch.as_tensor(M_c, dtype=re.dtype, device=re.device)
+    acc = torch.zeros((1 << len(above), 1 << (h - len(above) + l)),
+                      dtype=re.dtype, device=re.device)
+    for r0 in range(0, R, rows):
+        blk = r0 >> b
+        out = 0
+        for q in above:
+            out = (out << 1) | ((blk >> (n_m - b - 1 - q)) & 1)
+        xr, xi = re[r0:r0 + rows], im[r0:r0 + rows]
+        sq = xr * xr + xi * xi
+        red = (sq @ mc).reshape(shape)
+        if axes:
+            red = red.sum(dim=axes)
+        acc[out] += red.reshape(-1)
+    flat = acc.reshape(-1)
     return flat[_outcome_perm(weights, flat.device)]
 
 
@@ -131,15 +173,18 @@ def measure_probs(n: int, indices: Sequence[int], state, device="cuda") -> torch
     """Probability of every outcome of measuring ``indices`` on a flat
     complex state (ref measurement_ops.rs:115): shape (2^k,), entry m =
     P(qubit indices[i] == bit i of m)."""
-    x = _state(state, device)
-    return _probs_from_sq(n, _check_indices(n, indices), x.real * x.real + x.imag * x.imag)
+    _, R, C = _geometry(n)
+    x = _state(state, device).reshape(R, C)
+    return _probs_blocked(n, _check_indices(n, indices), x.real, x.imag)
 
 
 def measure_probs_ri(
     n: int, indices: Sequence[int], re: torch.Tensor, im: torch.Tensor
 ) -> torch.Tensor:
     """``measure_probs`` on (re, im) planes."""
-    return _probs_from_sq(n, _check_indices(n, indices), re * re + im * im)
+    _, R, C = _geometry(n)
+    return _probs_blocked(n, _check_indices(n, indices), re.reshape(R, C),
+                          im.reshape(R, C))
 
 
 def measure_prob(
@@ -310,21 +355,49 @@ def soft_measure(
     return sample_outcome(measure_probs_ri(n, indices, re, im), generator)
 
 
-def _collapse_mask(n: int, indices: Tuple[int, ...], outcome: int, device):
-    """(R, C) bool mask of basis states matching the outcome."""
+def _collapse_(n: int, indices: Sequence[int], measured: Tuple[int, float], planes):
+    """Collapse (R, C) planes (real planes, or one complex plane) IN PLACE
+    to ``measured = (outcome, prob)``, by row block of ``PASS_BLOCK``
+    elements: a block whose measured row bits above it miss the outcome is
+    zeroed whole; inside a block the amplitudes are scaled by
+    1/sqrt(prob), then the lanes and rows that miss are filled with 0.
+    No (R, C) mask is built. ``prob == 0`` leaves them as they are (the
+    reference's guard, measurement_ops.rs:230). Returns ``planes``."""
     m, R, C = _geometry(n)
     n_m = n - m
-    rows = torch.arange(R, device=device)
-    cols = torch.arange(C, device=device)
-    mask_r = torch.ones((R,), dtype=torch.bool, device=device)
-    mask_c = torch.ones((C,), dtype=torch.bool, device=device)
-    for t, q in enumerate(indices):
-        bit = (int(outcome) >> t) & 1
+    scale = _collapse_scale(measured[1], planes[0].real.dtype)
+    if scale is None:
+        return planes
+    rmask = rwant = cmask = cwant = 0
+    for t, q in enumerate(int(i) for i in indices):
+        bit = (int(measured[0]) >> t) & 1
         if q < n_m:
-            mask_r = mask_r & (((rows >> (n_m - 1 - q)) & 1) == bit)
+            rmask, rwant = rmask | 1 << (n_m - 1 - q), rwant | bit << (n_m - 1 - q)
         else:
-            mask_c = mask_c & (((cols >> (n - 1 - q)) & 1) == bit)
-    return mask_r[:, None] & mask_c[None, :]
+            cmask, cwant = cmask | 1 << (n - 1 - q), cwant | bit << (n - 1 - q)
+    dev = planes[0].device
+    rows = min(R, max(1, _types.PASS_BLOCK // C))
+    low, high = rmask & (rows - 1), rmask & ~(rows - 1)
+    lane_off = (torch.arange(C, device=dev) & cmask) != cwant if cmask else None
+    row_off = ((torch.arange(rows, device=dev) & low) != (rwant & low))[:, None] if low else None
+    for r0 in range(0, R, rows):
+        for x in planes:
+            blk = x[r0:r0 + rows]
+            if r0 & high != rwant & high:
+                blk.zero_()
+                continue
+            blk.mul_(scale)
+            if lane_off is not None:
+                blk.masked_fill_(lane_off, 0)
+            if row_off is not None:
+                blk.masked_fill_(row_off, 0)
+    return planes
+
+
+def _fresh(x: torch.Tensor, R: int, C: int) -> torch.Tensor:
+    """A contiguous (R, C) copy of ``x``, for a pass that works in place
+    on a state its caller keeps."""
+    return x.reshape(R, C).clone(memory_format=torch.contiguous_format)
 
 
 def measure_state_ri(
@@ -336,17 +409,10 @@ def measure_state_ri(
 ):
     """Collapse: zero non-matching amplitudes, scale by 1/sqrt(p)
     (ref measurement_ops.rs:220); ``prob == 0`` leaves the state as is
-    (the reference's guard, :230)."""
+    (the reference's guard, :230). Returns fresh planes: the input is
+    copied, then collapsed in place (``_collapse_``)."""
     _, R, C = _geometry(n)
-    scale = _collapse_scale(measured[1], re.dtype)
-    if scale is None:
-        return re.reshape(R, C), im.reshape(R, C)
-    mask = _collapse_mask(n, tuple(int(i) for i in indices), measured[0], re.device)
-    zero = torch.zeros((), dtype=re.dtype, device=re.device)
-    return (
-        torch.where(mask, re.reshape(R, C) * scale, zero),
-        torch.where(mask, im.reshape(R, C) * scale, zero),
-    )
+    return tuple(_collapse_(n, indices, measured, [_fresh(re, R, C), _fresh(im, R, C)]))
 
 
 def _collapse_scale(prob, real_dtype: torch.dtype) -> Optional[float]:
@@ -368,14 +434,9 @@ def measure_state(
     outcome become 0, the others are scaled by 1/sqrt(prob), and
     ``prob == 0`` leaves the state as it is (:230). Returns a new flat
     state."""
-    x = _state(state, device)
     _, R, C = _geometry(n)
-    scale = _collapse_scale(measured[1], x.real.dtype)
-    if scale is None:
-        return x.reshape(-1).clone()
-    mask = _collapse_mask(n, tuple(int(i) for i in indices), measured[0], x.device)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return torch.where(mask, x.reshape(R, C) * scale, zero).reshape(-1)
+    x = _fresh(_state(state, device), R, C)
+    return _collapse_(n, indices, measured, [x])[0].reshape(-1)
 
 
 #: Most outcomes drawn in one stage: a larger distribution is not copied to

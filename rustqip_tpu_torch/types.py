@@ -25,6 +25,13 @@ import torch
 #: view shared by the engine, the window kernel and the measurements.
 MINOR_QUBITS = 7
 
+#: Most state elements a blocked plain pass (the outcome probabilities, the
+#: collapse, the cross swap, the reflection) works on at once, a power of
+#: two: its temporaries stay at 64 MiB of float32 whatever n is, so a
+#: 32-qubit state (32 GiB of float32 planes) runs with little more than
+#: itself on an 80 GB card.
+PASS_BLOCK = 1 << 24
+
 
 class Representation(enum.Enum):
     """Bit order for sparse-matrix input data (``qip/src/types.rs:17-22``)."""

@@ -247,7 +247,9 @@ def profile_passes(builder, iters: int = 3, seed=None) -> list:
 
     ``seed``: None profiles from |0..0>; an int from a seeded random
     normalized state. The planes carry each sweep's output into the next
-    sweep's runs (kernel sweeps update them in place)."""
+    sweep's runs; they are the profiler's own, so every sweep that can
+    updates them in place (``run_sweeps(..., inplace=True)``), as in
+    ``CompiledCircuit.run``."""
     from rustqip_tpu_torch.engine.real_apply import run_sweeps
 
     cc = _compiled(builder)
@@ -256,11 +258,11 @@ def profile_passes(builder, iters: int = 3, seed=None) -> list:
     clock = _Clock(cc.device)
     results = []
     for info, plan in sweep_plans(cc):
-        re, im = run_sweeps(cc.n, plan, re, im)
+        re, im = run_sweeps(cc.n, plan, re, im, inplace=True)
         _sync(cc.device)
         clock.start()
         for _ in range(iters):
-            re, im = run_sweeps(cc.n, plan, re, im)
+            re, im = run_sweeps(cc.n, plan, re, im, inplace=True)
         dt = clock.stop() / iters
         results.append({**info, "ms": dt * 1e3,
                         "gbps": sweep_bytes / dt / 1e9 if dt > 0 else float("inf")})
@@ -293,7 +295,7 @@ def profile_passes_fused(builder, extra_reps: int = 7, iters: int = 2, seed=None
             clock.start()
             for plan, r in zip(plans, reps):
                 for _ in range(int(r)):
-                    re, im = run_sweeps(cc.n, plan, re, im)
+                    re, im = run_sweeps(cc.n, plan, re, im, inplace=True)
             best = min(best, clock.stop())
         return best
 
