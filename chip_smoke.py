@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Drives ``rustqip_tpu_torch`` (never JAX or ``rustqip_tpu``) from the root of
-a checkout: builds the three Hopper kernels from
-``rustqip_tpu_torch/csrc/`` (``window_sweep.cu``, ``row_swap.cu``,
+a checkout: builds the four Hopper kernel sources from
+``rustqip_tpu_torch/csrc/`` (the window kernel's two paths,
+``window_stream.cu`` and ``window_sweep.cu``, then ``row_swap.cu`` and
 ``plane_copy.cu``; one nvcc each, all started together), holds each against
-its plain PyTorch version (the window kernel on the parity windows, the
-row swap on five pair sets, exactly). On the clean allocator
+its plain PyTorch version (the window kernel on the parity windows, a
+register-path window on both paths; the row swap on five pair sets,
+exactly). On the clean allocator
 ``phase_capacity`` then runs the main path at n = 32 (2 x 16 GiB of
 float32 planes, the largest state one H100 holds): the JAX package's
 single-chip capacity circuit, QFT-32 of the basis state with all bits set
@@ -40,8 +42,9 @@ kernels), a lane ``apply_op`` (``c64_low_matmul``), a row-pair ``SwapOp``
 and the complex measurement API, each against its plain version.
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
-(``window_breakdown``), one window per redesigned step kind alone
-(``step_breakdown``), the swap pass of QFT-28, QPE-28 and Shor-28 by part
+(``window_breakdown``; a register-path window also on the tile path, in
+turns), one window per redesigned step kind and the element-wise h = 4
+windows alone (``step_breakdown``), the swap pass of QFT-28, QPE-28 and Shor-28 by part
 (``swap_breakdown``), every sweep of QPE-28 and Shor-28
 (``circuit_breakdown``) and the copy floor (``copy_floor``), each beside its
 bound: the larger of the bytes it must move at 3.35 TB/s and its 3xTF32
@@ -49,7 +52,9 @@ tensor-core flops at 495 TFLOP/s, and, where there is one, the one PyTorch
 call that computes the same function.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
-non-zero. The second-to-last line is the ``kernels`` summary; the last
+non-zero. ``python3 chip_smoke.py --step-breakdown`` builds the kernels and
+runs only the parity windows and the two breakdowns (kernel work; no result
+line). The second-to-last line is the ``kernels`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -146,11 +151,22 @@ def window_bound(prog, n: int):
 
 
 def kernel_modules():
-    """{kernel name: the module whose wrapper counts its launches}."""
+    """{kernel source name: the module whose wrapper counts its launches}.
+    ``window_sweep`` counts every launch of the window kernel,
+    ``window_stream`` the launches of its register-streaming path."""
     from rustqip_tpu_torch.engine import copy_probe, row_swap
     from rustqip_tpu_torch.engine import window_kernel as wk
 
-    return {"window_sweep": wk, "row_swap": row_swap, "plane_copy": copy_probe}
+    return {"window_sweep": wk, "window_stream": wk, "row_swap": row_swap,
+            "plane_copy": copy_probe}
+
+
+def tile_twin(prog):
+    """The same program on the tile path, for a register-path program (A/B
+    in one call); None for a tile-path program."""
+    import dataclasses
+
+    return dataclasses.replace(prog, path="tile") if prog.path == "registers" else None
 
 
 def reset_launches() -> None:
@@ -193,7 +209,7 @@ def phase_env():
 
 
 def phase_build():
-    """Build the three kernels from the checkout's sources (one nvcc each,
+    """Build the four kernel sources from the checkout (one nvcc each,
     started together) and load them."""
     from rustqip_tpu_torch.engine import cuda_build
 
@@ -202,8 +218,8 @@ def phase_build():
     t0 = time.perf_counter()
     names = list(kernel_modules())
     per = cuda_build.build(*names)
-    for mod in kernel_modules().values():
-        mod._lib()
+    for name in names:
+        cuda_build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per,
           "libraries": [str(cuda_build.library_path(k).relative_to(ROOT)) for k in names]})
@@ -222,7 +238,8 @@ def seeded_state(n: int, seed: int, device):
 
 
 def phase_parity():
-    """Kernel vs plain on the parity windows at n=20 (f32)."""
+    """Kernel vs plain on the parity windows at n=20 (f32); a window on
+    the register-streaming path is checked on the tile path too."""
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
@@ -237,6 +254,7 @@ def phase_parity():
     n = N_PARITY
     re0, im0 = seeded_state(n, 0, "cuda")
     seen = set()
+    paths = set()
     worst = 0.0
     rows = []
     for name, ops, expected in build_sequences(n) + [lowr_sequence(n)]:
@@ -247,37 +265,49 @@ def phase_parity():
             if kind != "kwindow":
                 raise AssertionError(f"{name}: a sweep left the kernel ({kind})")
             seg, ksteps, prog = payload
-            kr, ki = re0.clone(), im0.clone()
             pr, pi = re0.clone(), im0.clone()
-            wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog)
             wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
-            torch.cuda.synchronize()
-            diff = max(diff, (kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+            for p in filter(None, (prog, tile_twin(prog))):
+                kr, ki = re0.clone(), im0.clone()
+                wk.window_sweep(n, kr, ki, seg, ksteps, prog=p)
+                torch.cuda.synchronize()
+                diff = max(diff, (kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+                paths.add(p.path)
             kinds |= set(prog.kinds)
         if diff > KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain max|diff| {diff}")
         seen |= set(wk.KIND_LAUNCHES)
         worst = max(worst, diff)
-        rows.append({"window": name, "kinds": sorted(kinds), "max_abs_diff": diff})
+        rows.append({"window": name, "kinds": sorted(kinds), "paths": sorted(paths),
+                     "max_abs_diff": diff})
+        paths = set()
     for name, hq, ksteps, kinds in step_windows(n):
         seg = window_seg_sizes(n, hq)
         prog = wk.encode_window(n, seg, ksteps)
-        kr, ki = re0.clone(), im0.clone()
         pr, pi = re0.clone(), im0.clone()
-        wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog)
         wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
-        torch.cuda.synchronize()
-        diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+        diff = 0.0
+        for p in filter(None, (prog, tile_twin(prog))):
+            kr, ki = re0.clone(), im0.clone()
+            wk.window_sweep(n, kr, ki, seg, ksteps, prog=p)
+            torch.cuda.synchronize()
+            diff = max(diff, (kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+            paths.add(p.path)
         if diff > KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain max|diff| {diff}")
         worst = max(worst, diff)
-        rows.append({"window": name, "kinds": sorted(kinds), "max_abs_diff": diff})
+        rows.append({"window": name, "kinds": sorted(kinds), "paths": sorted(paths),
+                     "max_abs_diff": diff})
+        paths = set()
     seen |= set(wk.KIND_LAUNCHES)
     missing = set(wk.KINDS) - seen
     if missing:
         raise AssertionError(f"step kinds never launched: {sorted(missing)}")
+    if not wk.LAUNCHES["window_stream"]:
+        raise AssertionError("the register-streaming path never launched")
     emit({"phase": "kernel_vs_plain", "n": n, "tol": KERNEL_TOL,
-          "windows": rows, "kinds_launched": dict(wk.KIND_LAUNCHES)})
+          "windows": rows, "kinds_launched": dict(wk.KIND_LAUNCHES),
+          "launches": dict(wk.LAUNCHES)})
     return worst
 
 
@@ -316,6 +346,7 @@ def phase_swap_parity():
 N_CAP = 32  # phase_capacity: 2 x 16 GiB of float32 planes on one 80 GB card
 CAP_PEAK_GIB = 40.0  # its bar per run: the 32 GiB state plus 8 GiB of scratch
 CAP_MARKED = 0b10110011100011110000111101011001  # Grover-32's marked value
+GROVER28_MARKED = 0b1011001110001111000011110101  # Grover-28's marked value
 
 
 def capacity_circuit(b, n: int, k: int = 4):
@@ -452,7 +483,8 @@ def phase_capacity():
         kinds = dict(wk.KIND_LAUNCHES)
         err, extra = check(re, im, res)
         del re, im, res
-        if launches["window_sweep"] <= 0 or (name.startswith("qft") and launches["row_swap"] <= 0):
+        if launches["window_sweep"] <= 0 or (name.startswith("qft") and launches["row_swap"] <= 0) \
+                or (name != "grover32_iteration_native" and launches["window_stream"] <= 0):
             raise AssertionError(f"{name}: the capacity path launched {launches}")
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: cc.run(init, generator=gen))
@@ -657,7 +689,7 @@ def phase_main():
             raise AssertionError(f"QFT: max|amp - 2^(-n/2)| = {err}")
 
     # (c) one Grover-28 iteration from the uniform state, both forms.
-    marked = 0b1011001110001111000011110101 & ((1 << n) - 1)
+    marked = GROVER28_MARKED
     idx = sum(((marked >> j) & 1) << (n - 1 - j) for j in range(n))
     N = 1 << n
     a0 = N ** -0.5
@@ -775,7 +807,8 @@ def phase_main():
         ("adder28_hadamard", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(adder(True))),
     ]
     must_launch = {"row_swap": {"qft28", "qpe28", "shor28", "controlled_wide_swap28"},
-                   "plane_copy": {"controlled_wide_swap28"}}
+                   "plane_copy": {"controlled_wide_swap28"},
+                   "window_stream": {"qft28", "grover28_iteration_gate"}}
     ccs = {}
     for name, make, check in circuits:
         row, launches, cc = run_circuit(name, make, check)
@@ -1758,7 +1791,7 @@ def phase_state_api():
                         swap_kernel=False)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if read_launches() != {"window_sweep": 0, "row_swap": 0, "plane_copy": 0}:
+    if any(read_launches().values()):
         raise AssertionError(f"state API: the plain path launched {read_launches()}")
     err = diff(out, pr, pi)
     del pr, pi
@@ -1796,7 +1829,7 @@ def phase_state_api():
     u = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))[0]
     lane = make_matrix_op([n - 2, n - 1], u.reshape(-1))
     lane_out, launches = counted(lambda: apply_op(n, lane, state))
-    if launches != {"window_sweep": 1, "row_swap": 0, "plane_copy": 0}:
+    if launches != {"window_sweep": 1, "window_stream": 0, "row_swap": 0, "plane_copy": 0}:
         raise AssertionError(f"state API: lane apply_op launched {launches}")
     B = _dense_plan(n, lane.indices, _mat_key(lane.data))[1]
     re, im = _split(n, state, None)
@@ -1820,7 +1853,7 @@ def phase_state_api():
     pairs = [(q, n - 1 - q) for q in range(n // 2) if n - 1 - q < n - 7]  # QFT's row field
     swap = make_swap_op(*zip(*pairs))
     sw_out, launches = counted(lambda: apply_op(n, swap, state))
-    if launches != {"window_sweep": 0, "row_swap": 1, "plane_copy": 0}:
+    if launches != {"window_sweep": 0, "window_stream": 0, "row_swap": 1, "plane_copy": 0}:
         raise AssertionError(f"state API: row-pair SwapOp launched {launches}")
     if not torch.equal(sw_out, _join(*row_swap_reference(n, pairs, *_split(n, state, None)))):
         raise AssertionError("state API: row-pair SwapOp differs from the plain permutation")
@@ -1862,11 +1895,14 @@ def phase_state_api():
 
 
 def phase_window_breakdown(ccs):
-    """Each kernel window of QFT-28 and of the gate-form Grover-28
-    iteration alone, on a seeded random state: kernel time (median of
+    """Each kernel window of QFT-28, the gate-form Grover-28 iteration,
+    QPE-28 and Shor-28 alone, on a seeded random state: kernel time (median of
     REPS, CUDA events), device-memory bytes it must move (live strips read
-    + written, both planes) and the rate that implies. QFT-28's windows
-    are also run through the plain version, for the kernels line."""
+    + written, both planes) and the rate that implies. A window on the
+    register-streaming path is also timed on the tile path, in turns
+    (tile, registers, registers, tile), and checked on both. QFT-28's
+    windows are also run through the plain version, for the kernels line;
+    ``stream`` sums QFT-28's register-path windows alone."""
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
@@ -1880,49 +1916,74 @@ def phase_window_breakdown(ccs):
     kms = pms = 0.0
     worst = 0.0
     bound = {"bytes": 0.0, "operations": 0.0}  # QFT-28's windows, by what bounds each
-    for name in ("qft28", "grover28_iteration_gate"):
+    stream = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "tile_ms": 0.0}
+    slower = []  # register-path windows slower than on the tile path
+    for name in ("qft28", "grover28_iteration_gate", "qpe28", "shor28"):
+        if name not in ccs:
+            continue
         windows = []
         for info, plan in observe.sweep_plans(ccs[name]):
             if info["kernel"]:
                 sg, ksteps, prog = plan[0][1]
+                tile = tile_twin(prog)
                 kr, ki = x[0].clone(), x[1].clone()
-                ms = cuda_ms(lambda: wk.window_sweep(n, kr, ki, sg, ksteps, prog=prog))
+                turns = [cuda_ms(lambda: wk.window_sweep(n, kr, ki, sg, ksteps, prog=p))
+                         for p in ((tile, prog, prog, tile) if tile else (prog,))]
+                ms = min(turns[1:3]) if tile else turns[0]
                 strip_bytes = (x.shape[1] >> prog.h) * 128 * 4 * 2
                 moved = (bin(prog.in_mask).count("1") + bin(prog.out_mask).count("1")) * strip_bytes
                 bound_ms, bound_by = window_bound(prog, n)
-                row = {"h": prog.h, "tile_rows": prog.bt, "steps": prog.nsteps,
-                       "kinds": list(prog.kinds), "smem_bytes": prog.smem_bytes,
-                       "ms": ms, "bytes": moved, "GB_per_s": moved / ms / 1e6,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                row = {"h": prog.h, "path": prog.path, "tile_rows": prog.bt,
+                       "steps": prog.nsteps, "kinds": list(prog.kinds),
+                       "smem_bytes": prog.smem_bytes, "ms": ms, "bytes": moved,
+                       "GB_per_s": moved / ms / 1e6, "bound_ms": bound_ms, "bound_by": bound_by}
+                if tile:
+                    row["tile_ms"] = min(turns[0], turns[3])
+                    row["turns_ms"] = turns
+                    if row["tile_ms"] < ms:
+                        slower.append([name, len(windows), ms, row["tile_ms"]])
                 if name == "qft28":
-                    kr, ki = x[0].clone(), x[1].clone()
                     pr, pi = x[0].clone(), x[1].clone()
-                    wk.window_sweep(n, kr, ki, sg, ksteps, prog=prog)
                     wk.window_sweep_reference(n, pr, pi, sg, ksteps, prog=prog)
-                    torch.cuda.synchronize()
-                    worst = max(worst, (kr - pr).abs().max().item(),
-                                (ki - pi).abs().max().item())
+                    for p in filter(None, (prog, tile)):
+                        kr, ki = x[0].clone(), x[1].clone()
+                        wk.window_sweep(n, kr, ki, sg, ksteps, prog=p)
+                        torch.cuda.synchronize()
+                        worst = max(worst, (kr - pr).abs().max().item(),
+                                    (ki - pi).abs().max().item())
                     row["plain_ms"] = cuda_ms(
                         lambda: wk.window_sweep_reference(n, pr, pi, sg, ksteps, prog=prog))
                     kms += ms
                     pms += row["plain_ms"]
                     bound[bound_by] += bound_ms
+                    if tile:
+                        stream["ms"] += ms
+                        stream["plain_ms"] += row["plain_ms"]
+                        stream["bound_ms"] += bound_ms
+                        stream["tile_ms"] += row["tile_ms"]
                     del pr, pi
                 del kr, ki
                 windows.append(row)
         emit({"phase": "window_breakdown", "circuit": name,
-              "kernel_ms_sum": sum(w["ms"] for w in windows), "windows": windows})
+              "kernel_ms_sum": sum(w["ms"] for w in windows),
+              "tile_path_ms_sum": sum(w.get("tile_ms", w["ms"]) for w in windows),
+              "windows": windows})
     if worst > E2E_TOL:
         raise AssertionError(f"QFT-28 windows: kernel vs plain max|diff| {worst}")
-    return kms, pms, worst, bound
+    emit({"phase": "register_path_vs_tile", "slower_windows": slower})
+    return kms, pms, worst, bound, stream
 
 
 def phase_step_breakdown(ccs):
     """One window per redesigned step kind, alone, at n = 28 on a seeded
-    state: kernel ms (CUDA events, median of REPS after a warm-up), the
-    plain version's ms, the bound, and the one PyTorch call that computes
-    the same function where there is one (timed here, used nowhere in the
-    port). Kernel vs plain is checked on every row."""
+    state, and the element-wise h = 4 windows of QFT-28 and Grover-28 (a
+    whole window, one of its mix and diag steps alone, mix-only windows
+    with 16 and 1 nonzeros per output strip): kernel ms (CUDA events,
+    median of REPS after a warm-up; a register-path window also on the
+    tile path, in turns), the plain version's ms, the bound, and the one
+    PyTorch call that computes the same function where there is one (timed
+    here, used nowhere in the port). Kernel vs plain is checked on every
+    row and path."""
     import numpy as np
     import torch
 
@@ -1956,36 +2017,74 @@ def phase_step_breakdown(ccs):
         _, hq, ksteps, _ = steps[name]
         return tuple(window_seg_sizes(n, hq)), ksteps
 
+    def kwindows(name):
+        return [p for seg in ccs[name].sweeps for k, p, _ in seg if k == "kwindow"]
+
+    def mix_nonzeros(step, ns):
+        return max(sum(step[1].get((j, i), 0) != 0 for i in range(ns)) for j in range(ns))
+
+    def mix_only(nonzeros):
+        """The first mix-only h = 4 window of Grover-28 (gate form) whose
+        mix has ``nonzeros`` nonzeros in its fullest output strip."""
+        return next(p for p in kwindows("grover28_iteration_gate")
+                    if p[2].h == 4 and set(p[2].kinds) == {"mix"}
+                    and mix_nonzeros(p[1][0], 16) == nonzeros)
+
+    qft_seg, qft_steps, qft_prog = next(p for p in kwindows("qft28") if p[2].h == 4)
+    dense = mix_only(16)
+    top = tuple(window_seg_sizes(n, (0, 1, 2, 3)))  # strips = the top row bits
     cases = [
         ("low_c64_low_matmul", (R,), [("low", B)], None),
         ("lowr_h0", (R,), [("low", Br)], None),
         ("rmix_grover_diffusion", *grover_rmix),
         ("diag_qft_cp_fan", *lone("diag_cp_fan"), None),
         ("diag_many_groups", *lone("diag_many_groups"), None),
+        # the window kernel's element-wise h = 4 windows
+        ("qft28_h4_window", qft_seg, qft_steps, qft_prog),
+        ("qft28_h4_mix_alone", qft_seg,
+         [next(s for s in qft_steps if s[0] == "mix")], None),
+        ("qft28_h4_diag_alone", qft_seg,
+         [next(s for s in qft_steps if s[0] == "diag")], None),
+        ("grover28_mix16_window", *dense),
+        ("grover28_mix1_window", *mix_only(1)),
+        ("mix16_top_row_bits", top, dense[1], None),
+        # a dense mix that does not factor per window bit (the register
+        # path's term loops, not butterflies), as QPE-28's inverse-QFT head
+        ("mix16_unfactored_top_row_bits", top,
+         [("mix", {(j, i): complex(v) for (j, i), v in np.ndenumerate(rand_u(4, 64))})], None),
     ]
     worst = 0.0
+    mix_library = None
     for name, seg, ksteps, prog in cases:
         if prog is None:
             prog = wk.encode_window(n, seg, ksteps)
-        kr, ki = x[0].clone(), x[1].clone()
+        tile = tile_twin(prog)
         pr, pi = x[0].clone(), x[1].clone()
-        wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog)
         wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog)
-        torch.cuda.synchronize()
-        diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+        diff = 0.0
+        for p in filter(None, (tile, prog)):
+            kr, ki = x[0].clone(), x[1].clone()
+            wk.window_sweep(n, kr, ki, seg, ksteps, prog=p)
+            torch.cuda.synchronize()
+            diff = max(diff, (kr - pr).abs().max().item(), (ki - pi).abs().max().item())
         if diff > KERNEL_TOL:
             raise AssertionError(f"step {name}: kernel vs plain max|diff| {diff}")
         worst = max(worst, diff)
-        ms = cuda_ms(lambda: wk.window_sweep(n, kr, ki, seg, ksteps, prog=prog))
+        # tile, registers, registers, tile: the two paths in turns
+        ms = [cuda_ms(lambda: wk.window_sweep(n, kr, ki, seg, ksteps, prog=p))
+              for p in ((tile, prog, prog, tile) if tile else (prog,))]
         plain_ms = cuda_ms(lambda: wk.window_sweep_reference(n, pr, pi, seg, ksteps, prog=prog))
         del pr, pi
         bound_ms, bound_by = window_bound(prog, n)
         row = {"phase": "step_breakdown", "step": name, "n": n, "h": prog.h,
-               "tile_rows": prog.bt, "smem_bytes": prog.smem_bytes,
-               "kinds": list(prog.kinds), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_share": bound_ms / ms, "library_ms": None,
-               "max_abs_diff": diff}
+               "path": prog.path, "tile_rows": prog.bt, "smem_bytes": prog.smem_bytes,
+               "kinds": list(prog.kinds), "ms": min(ms[1:3]) if tile else ms[0],
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "max_abs_diff": diff}
+        row["bound_share"] = bound_ms / row["ms"]
+        if tile:
+            row["tile_ms"] = min(ms[0], ms[3])
+            row["turns_ms"] = ms
         if name == "low_c64_low_matmul":
             # the user-facing function (it runs the kernel on copies)
             row["c64_low_matmul_ms"] = cuda_ms(lambda: wk.c64_low_matmul(kr, ki, B))
@@ -2002,10 +2101,20 @@ def phase_step_breakdown(ccs):
             row["library_ms"] = cuda_ms(lambda: torch.matmul(x2, bt))
             row["library_call"] = "torch.matmul float32 (2R,128)@(128,128), full fp32"
             del x2
+        elif name in ("mix16_top_row_bits", "mix16_unfactored_top_row_bits"):
+            (mix,) = ksteps
+            m = torch.tensor([[complex(mix[1].get((j, i), 0)) for i in range(16)]
+                              for j in range(16)], dtype=torch.complex64, device="cuda")
+            xc = torch.complex(kr, ki).view(16, -1)
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(m, xc))
+            row["library_call"] = "torch.matmul complex64 (16,16)@(16,R/16*128), full fp32"
+            if name == "mix16_top_row_bits":
+                mix_library = {"ms": row["ms"], "library_ms": row["library_ms"]}
+            del xc
         del kr, ki
         torch.cuda.empty_cache()
         emit(row)
-    return worst
+    return worst, mix_library
 
 
 def _field(n_m, pairs):
@@ -2190,6 +2299,21 @@ def phase_copy_floor():
     return out
 
 
+def compile_breakdown_circuits():
+    """QFT-28 and Grover-28 (gate form) compiled as ``phase_main`` compiles
+    them, not run: the windows the breakdown phases time."""
+    from rustqip_tpu_torch.algos import grover_iteration, qfft
+
+    ccs = {}
+    b = _builder(True)
+    qfft(b, b.register(N_MAIN))
+    ccs["qft28"] = b.compile()
+    b = _builder(True)
+    grover_iteration(b, b.h(b.register(N_MAIN)), GROVER28_MARKED, native_diffusion=False)
+    ccs["grover28_iteration_gate"] = b.compile()
+    return ccs
+
+
 def main() -> int:
     try:
         import torch
@@ -2208,6 +2332,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_env()
     phase_build()
+    if sys.argv[1:] == ["--step-breakdown"]:
+        # a quick check and measurement: the parity windows, the kernel
+        # windows of QFT-28 and Grover-28 and the lone windows of
+        # phase_step_breakdown only; no result line
+        phase_parity()
+        ccs = compile_breakdown_circuits()
+        phase_window_breakdown(ccs)
+        phase_step_breakdown(ccs)
+        return 0
     parity_err = phase_parity()
     swap_err = phase_swap_parity()
     cap_launches, cap_kinds, cap_parts = phase_capacity()
@@ -2230,8 +2363,8 @@ def main() -> int:
     api_launches, api_kinds = phase_state_api()
     launches = {k: launches[k] + api_launches[k] for k in launches}
     kind_launches = dict(Counter(kind_launches) + api_kinds)
-    kms, pms, qft_err, bound = phase_window_breakdown(ccs)
-    step_err = phase_step_breakdown(ccs)
+    kms, pms, qft_err, bound, stream = phase_window_breakdown(ccs)
+    step_err, mix_library = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)
     phase_circuit_breakdown(ccs)
     copy = phase_copy_floor()
@@ -2255,6 +2388,27 @@ def main() -> int:
             # no one PyTorch call computes a window's step chain; the lone
             # matrix steps' library calls are in the step_breakdown rows
             "library_ms": None,
+        },
+        {
+            # the register-streaming path of the same kernel (its launches
+            # are also in window_sweep's): ms, plain_ms, bound_ms are
+            # QFT-28's register-path windows (h = 4 and h = 1), each alone,
+            # summed; tile_ms the same windows on the tile path in turns;
+            # library_ms one torch.matmul of a dense h = 4 mix on the top
+            # row bits, beside that window's own ms (step_breakdown)
+            "name": "window_stream",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/window_stream.cu",
+            "replaces": "rustqip_tpu/engine/pallas_kernels.py:1155",
+            "launches": launches["window_stream"],
+            "max_abs_err": max(parity_err, qft_err, step_err),
+            "ms": stream["ms"],
+            "plain_ms": stream["plain_ms"],
+            "bound_ms": stream["bound_ms"],
+            "bound_by": "bytes",
+            "tile_ms": stream["tile_ms"],
+            "library_ms": mix_library["library_ms"],
+            "library_window_ms": mix_library["ms"],
         },
         {
             # ms, plain_ms, bound_ms, library_ms: the row parts of the swap

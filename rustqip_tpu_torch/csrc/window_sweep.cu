@@ -1,6 +1,9 @@
-// Strip-window sweep for Hopper (sm_90a): one read and one write of the
-// live strips of a (R, 128) float32 re/im state, with a whole chain of gate
-// steps applied in shared memory in between.
+// Strip-window sweep for Hopper (sm_90a), tile path: one read and one write
+// of the live strips of a (R, 128) float32 re/im state, with a whole chain
+// of gate steps applied in shared memory in between. Windows whose steps
+// are all strip-local (mix, diag, cmix) take the register-streaming path,
+// csrc/window_stream.cu, instead; this path keeps every window with a row
+// butterfly or a matrix step.
 //
 // Replaces the JAX package's Pallas kernel
 // rustqip_tpu/engine/pallas_kernels.py: _window_sweep_pipelined (:1029,
@@ -48,6 +51,10 @@
 //   scalar blocks and writes the rmix scratch. The k order inside a chunk
 //   is permuted (A and B alike) so that each lane reads its A and B
 //   fragments with one 16-byte load per two mma k-steps.
+// * "mix" turns its outputs' term lists into an NS x NS coefficient table
+//   (in each thread's registers up to 4 strips, in shared memory above);
+//   every element then runs the unrolled NS x NS loop over that table,
+//   predicated on the term masks.
 // * "diag" keeps the separable structure of the TPU kernel's diag_factors:
 //   per strip, one row angle per tile row (bt sincosf, in shared memory),
 //   one 128-entry complex lane factor and one 128-entry complex lane vector
@@ -59,21 +66,30 @@
 //
 // Step program (engine/window_kernel.py: encode_window is the one writer):
 // record i = iprog[8*i .. 8*i+8) = {kind, active strip mask, a0..a5}.
-//   MIX  (0): a0 = int offset of per-output input masks [NS],
-//             a1 = float offset of an NS x NS complex coefficient table.
+//   MIX  (0): a0 = int offset of NS per-output entries (input mask, type
+//             bits, float offset, row class; 16-byte aligned): output j
+//             sums its inputs i in the mask,
+//             each times the next (re, im) of its coefficient list (8-byte
+//             aligned), folded by type (2 bits per i: 0 = one, 1 = real,
+//             2 = imaginary, 3 = complex; JAX: _scalar_pair). This path
+//             turns the lists into an NS x NS table first.
 //   RMIX (1): a0 = int offset of NS x NS (type, payload) terms; type 1 =
 //             complex scalar at fprog[payload], 2 = real matrix mats[payload],
 //             3 = complex matrix mats[payload] (re), mats[payload + 1] (im);
 //             a1 = int offset of the step's distinct matrix operands as
 //             (payload, complex) pairs, a2 = their count, a3 = 1 when any is
 //             complex (three accumulator sets, Karatsuba).
-//   DIAG (2): a0 = int offset of NS x 5 per-strip entries (int offset,
+//   DIAG (2): a1 = 1 when some entry is in angle mode (read by the
+//             register path);
+//             a0 = int offset of NS x 6 per-strip entries (int offset,
 //             float offset, row monomial count nr, group count G, angle
-//             mode). ints: nr row masks, then G group row masks. floats:
-//             the constant, nr row coefficients, the lane part, then G group
-//             parts; a part is 128 re + 128 im factors, or 128 angles in
-//             angle mode (G > DIAG_MASK_MAX). A row mask rm holds on a row
-//             when row & rm == rm.
+//             mode, lane-part float offset). ints: nr row masks, then G
+//             group row masks. floats: the constant and nr row
+//             coefficients; at the lane-part offset (16-byte aligned,
+//             shared by entries with equal parts) the lane part, then G
+//             group parts; a part is 128 re + 128 im factors, or 128 angles
+//             in angle mode (G > DIAG_MASK_MAX). A row mask rm holds on a
+//             row when row & rm == rm.
 //   CBF  (3) / RBF (4): a0 = lane / row bit p, a1 = row control mask,
 //             a2 = col control mask, a3 = float offset of (a, b, c, d).
 //   CMIX (5): a0 = window-index bit of the pair, a1..a3 as CBF; the active
@@ -98,6 +114,7 @@ constexpr int KC = 16;       // matrix steps: k per staged chunk of B
 constexpr int NCHUNK = C / KC;
 constexpr int BPART = C * KC;     // words of one staged part (hi or lo)
 constexpr int DIAG_MASK_MAX = 4;  // most groups an entry holds as factors
+constexpr int DIAG_ENT = 6;       // ints of a per-strip diag entry
 
 enum Kind { K_MIX = 0, K_RMIX = 1, K_DIAG = 2, K_CBF = 3, K_RBF = 4,
             K_CMIX = 5, K_LOW = 6, K_LOWR = 7 };
@@ -465,6 +482,42 @@ __device__ void matrix_step(const Params& P, const Tile& T, const Tile& S,
   }
 }
 
+// One mix step over the tile: each element reads its input strips, then
+// writes its output strips (outputs read only old values: in place per
+// element). coef(j, i) is the (re, im) weight of input i in output j.
+template <int NS, typename Coef>
+__device__ __forceinline__ void mix_elements(const Tile& T, int tid, int nel,
+                                             int active, const int (&nz)[NS],
+                                             int need, Coef coef) {
+  for (int e = tid; e < nel; e += THREADS) {
+    float vr[NS], vi[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      vr[i] = 0.0f;
+      vi[i] = 0.0f;
+      if ((need >> i) & 1) {
+        vr[i] = T.re(i)[e];
+        vi[i] = T.im(i)[e];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (!((active >> j) & 1)) continue;
+      float ar = 0.0f, ai = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if ((nz[j] >> i) & 1) {
+          const float2 c = coef(j, i);
+          ar += c.x * vr[i] - c.y * vi[i];
+          ai += c.x * vi[i] + c.y * vr[i];
+        }
+      }
+      T.re(j)[e] = ar;
+      T.im(j)[e] = ai;
+    }
+  }
+}
+
 template <int NS>
 __global__ void __launch_bounds__(THREADS, 1)
 window_sweep_kernel(Params P) {
@@ -523,42 +576,47 @@ window_sweep_kernel(Params P) {
     const int active = rec[1];
 
     if (kind == K_MIX) {
-      const int* nzm = iprog + rec[2];
-      const float* coef = fprog + rec[3];
+      // The outputs' term lists as an NS x NS table of (re, im), 0 where a
+      // term is absent (a stored one, real or imaginary coefficient has its
+      // other part 0, so the 4-product MAC gives exactly the folded
+      // products): up to 4 strips in each thread's registers, read once per
+      // step; above that expanded into aux once per CTA and step.
+      const int* ent = iprog + rec[2];
       int need = 0;
       int nz[NS];
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
-        nz[j] = ((active >> j) & 1) ? nzm[j] : 0;
+        nz[j] = ((active >> j) & 1) ? ent[4 * j] : 0;
         need |= nz[j];
       }
-      for (int e = tid; e < nel; e += THREADS) {
-        float vr[NS], vi[NS];
+      if constexpr (NS <= 4) {
+        float2 ct[NS][NS];
 #pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          vr[i] = 0.0f;
-          vi[i] = 0.0f;
-          if ((need >> i) & 1) {
-            vr[i] = T.re(i)[e];
-            vi[i] = T.im(i)[e];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          if (!((active >> j) & 1)) continue;
-          float ar = 0.0f, ai = 0.0f;
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
           for (int i = 0; i < NS; ++i) {
-            if ((nz[j] >> i) & 1) {
-              float cr = coef[2 * (j * NS + i)];
-              float ci = coef[2 * (j * NS + i) + 1];
-              ar += cr * vr[i] - ci * vi[i];
-              ai += cr * vi[i] + ci * vr[i];
-            }
+            const int k = __popc(nz[j] & ((1u << i) - 1u));  // terms before i
+            ct[j][i] = ((nz[j] >> i) & 1)
+                ? *reinterpret_cast<const float2*>(fprog + ent[4 * j + 2] + 2 * k)
+                : make_float2(0.0f, 0.0f);
           }
-          T.re(j)[e] = ar;
-          T.im(j)[e] = ai;
+        mix_elements<NS>(T, tid, nel, active, nz, need,
+                         [&](int j, int i) { return ct[j][i]; });
+      } else {
+        float* tab = aux;
+        for (int j = tid; j < NS; j += THREADS) {
+          const float* cf = fprog + ent[4 * j + 2];
+          for (int i = 0; i < NS; ++i) {
+            const bool on = (nz[j] >> i) & 1;
+            tab[2 * (j * NS + i)] = on ? cf[0] : 0.0f;
+            tab[2 * (j * NS + i) + 1] = on ? cf[1] : 0.0f;
+            cf += on ? 2 : 0;
+          }
         }
+        __syncthreads();
+        const float2* __restrict__ ctab = reinterpret_cast<const float2*>(tab);
+        mix_elements<NS>(T, tid, nel, active, nz, need,
+                         [&](int j, int i) { return ctab[j * NS + i]; });
       }
     } else if (kind == K_RMIX) {
       matrix_step<NS>(P, T, S, reinterpret_cast<uint32_t*>(aux), active,
@@ -579,7 +637,7 @@ window_sweep_kernel(Params P) {
       for (int idx = tid; idx < NS * bt; idx += THREADS) {
         const int i = idx / bt, r = idx - i * bt;
         if (!((active >> i) & 1)) continue;
-        const int* ent = per + 5 * i;
+        const int* ent = per + DIAG_ENT * i;
         const unsigned* rmk = reinterpret_cast<const unsigned*>(iprog + ent[0]);
         const float* fl = fprog + ent[1];
         const unsigned row = (unsigned)(sbase[i] + r);
@@ -599,10 +657,10 @@ window_sweep_kernel(Params P) {
       const int c = tid & (C - 1);
       for (int i = 0; i < NS; ++i) {
         if (!((active >> i) & 1)) continue;
-        const int* ent = per + 5 * i;
+        const int* ent = per + DIAG_ENT * i;
         const int nr = ent[2], G = ent[3];
         const unsigned* gm = reinterpret_cast<const unsigned*>(iprog + ent[0] + nr);
-        const float* lanep = fprog + ent[1] + 1 + nr;
+        const float* lanep = fprog + ent[5];
         const long long b = sbase[i];
         const float* rowv = aux + 2 * i * bt;
         float* xr = T.re(i);

@@ -8,13 +8,17 @@ side is ported exactly: ``_specialize_groups``, ``window_strip_activity``,
 ``_strip_skip_plan``, ``_strip_index_map``, ``_window_matrix_operands``.
 The TPU sizing models live in ``engine/admission.py``.
 
-The kernel itself is ``rustqip_tpu_torch/csrc/window_sweep.cu`` (CUDA C++
-for sm_90a, built with nvcc at first use and loaded with ctypes by
-``engine/cuda_build.py``). What
-bounds it and what its design does about that is written at the top of
-that file. ``encode_window`` turns a window's kernel steps into the step
-program the kernel interprets; ``CompiledCircuit`` encodes each window once
-at compile time and keeps the program on the device.
+The kernel has two paths, each a CUDA C++ source for sm_90a built with
+nvcc at first use and loaded with ctypes by ``engine/cuda_build.py``:
+``csrc/window_stream.cu`` (the register-streaming path) takes windows whose
+steps are all strip-local (``STREAM_KINDS``: mix, diag, cmix), and
+``csrc/window_sweep.cu`` (the tile path, shared-memory tiles) takes every
+window with a row butterfly or a matrix step. What bounds each and what its
+design does about that is written at the top of its file.
+``encode_window`` turns a window's kernel steps into the step program both
+paths interpret and picks the path (``WindowProgram.path``);
+``CompiledCircuit`` encodes each window once at compile time and keeps the
+program on the device.
 
 ``window_sweep`` launches the kernel for a CUDA float32 state or raises; a
 CPU state takes ``window_sweep_reference``, the plain torch version of the
@@ -47,7 +51,9 @@ from rustqip_tpu_torch.types import MINOR_QUBITS
 _C = 1 << MINOR_QUBITS  # 128
 
 #: Kernel launches, counted by ``window_sweep`` where it launches and
-#: nowhere else (``reset_launch_counts`` zeroes both counters).
+#: nowhere else (``reset_launch_counts`` zeroes both counters):
+#: ``"window_sweep"`` every launch of either path, ``"window_stream"`` the
+#: launches of the register-streaming path among them.
 LAUNCHES: Counter = Counter()
 #: Launches by step kind contained in the launched program.
 KIND_LAUNCHES: Counter = Counter()
@@ -301,12 +307,20 @@ def _window_matrix_operands(steps):
 KINDS = ("mix", "rmix", "diag", "cbf", "rbf", "cmix", "low", "lowr")
 _KIND_CODE = {k: i for i, k in enumerate(KINDS)}
 _REC = 8
+#: Step kinds that combine strips at one (row, lane) position only: a
+#: window of these alone takes the register-streaming path.
+STREAM_KINDS = frozenset({"mix", "diag", "cmix"})
+#: Mix term types, folded as ``pallas_kernels._scalar_pair`` folds a
+#: coefficient v: 1 passes the input through, a real or a pure-imaginary v
+#: takes two products, any other v four (v == 0 is dropped).
+T_ONE, T_REAL, T_IMAG, T_CPLX = range(4)
 #: Row-support groups a diag entry holds as lane-vector factors; above it
 #: the entry holds angles and the kernel takes one sincos per element (the
 #: JAX package's ``_diag_mask_max`` default, pallas_kernels.py:29).
 DIAG_MASK_MAX = 4
-#: Per-strip diag entry: (int offset, float offset, nr, G, angle mode).
-_DIAG_ENT = 5
+#: Per-strip diag entry: (int offset, float offset, nr, G, angle mode,
+#: float offset of the lane parts).
+_DIAG_ENT = 6
 #: Matrix steps stage B in chunks of 16 k x 128 lanes, hi and lo halves,
 #: double-buffered: bytes of one staged part pair (csrc: KC, BPART).
 _BSTAGE_PAIR_BYTES = 2 * _C * 16 * 4
@@ -332,6 +346,11 @@ class WindowProgram:
     #: Shared memory after the tile (and rmix scratch): staged matrix
     #: chunks or diag row factors.
     aux_bytes: int = 0
+    #: "registers" (csrc/window_stream.cu) for a window of ``STREAM_KINDS``
+    #: steps, "tile" (csrc/window_sweep.cu) otherwise. A register-path
+    #: program with ``path="tile"`` (``dataclasses.replace``) runs the same
+    #: program on the tile path: the A/B of ``chip_smoke.py``.
+    path: str = "tile"
     _dev: Dict[str, tuple] = field(default_factory=dict, repr=False)
 
     @property
@@ -354,12 +373,71 @@ class WindowProgram:
         return got
 
 
+def _term_type(v: complex) -> int:
+    """A mix coefficient's term type (``_scalar_pair``'s cases; v != 0)."""
+    if v == 1:
+        return T_ONE
+    if v.imag == 0:
+        return T_REAL
+    if v.real == 0:
+        return T_IMAG
+    return T_CPLX
+
+
+def _row_class(coeffs) -> int:
+    """0 when every term of a mix output is one or real, 1 when every term
+    is imaginary, 2 otherwise (the register path's loop per class)."""
+    types = {_term_type(v) for v in coeffs}
+    if types <= {T_ONE, T_REAL}:
+        return 0
+    return 1 if types == {T_IMAG} else 2
+
+
+def _mix_butterflies(blocks, ns: int):
+    """Factor a mix's coefficient matrix M (output strip j, input strip i)
+    into one 2 x 2 matrix per window-index bit, M[j, i] = prod_b
+    m_b[j_b, i_b]: the factors that are not the identity as [(bit, m_b)],
+    the matrix's scale folded into the first; None when M is no such
+    product (or h = 0). The register path applies them as butterflies."""
+    h = ns.bit_length() - 1
+    if h == 0:
+        return None
+    M = np.zeros((ns, ns), dtype=np.complex128)
+    for (j, i), v in blocks.items():
+        M[j, i] = complex(v)
+    j0, i0 = np.unravel_index(np.argmax(np.abs(M)), M.shape)
+    scale = M[j0, i0]
+    if scale == 0:
+        return None
+    facs = []
+    for b in range(h):
+        f = np.empty((2, 2), dtype=np.complex128)
+        for x in range(2):
+            for y in range(2):
+                jj = (j0 & ~(1 << b)) | (x << b)
+                ii = (i0 & ~(1 << b)) | (y << b)
+                f[x, y] = M[jj, ii] / scale
+        facs.append(f)
+    idx = np.arange(ns)
+    R = np.full((ns, ns), scale)
+    for b, f in enumerate(facs):
+        R = R * f[(idx[:, None] >> b) & 1, (idx[None, :] >> b) & 1]
+    if np.abs(R - M).max() > 1e-10 * np.abs(M).max():
+        return None
+    out = [(b, f) for b, f in enumerate(facs) if not np.allclose(f, np.eye(2), rtol=0, atol=1e-15)]
+    if not out:
+        out = [(0, np.eye(2))]
+    out[0] = (out[0][0], out[0][1] * scale)
+    return out
+
+
 def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
     """Encode a window's kernel steps (``real_apply.window_ksteps``) into
     the step program the kernel and ``window_sweep_reference`` interpret.
     Per-step active strip masks follow the TPU body's live-strip
     bookkeeping exactly (which strips each step touches, ctrl-dead strips
-    skipped, diag specialized per strip)."""
+    skipped, diag specialized per strip). A window of ``STREAM_KINDS``
+    steps takes the register-streaming path, any other the tile path."""
     seg_sizes = tuple(int(s) for s in seg_sizes)
     h = len(seg_sizes) - 1
     ns = 1 << h
@@ -420,25 +498,36 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
             ang += c * ((lanes & cm) == cm)
         return ang
 
+    lane_parts: dict = {}  # equal lane parts of a window are stored once
+
     def diag_entry(sg, angle_mode):
         """One strip's separable diag factors (``diag_factors``:406):
         the constant and row monomials (angles the kernel sums per row),
         the lane monomials folded into one lane part, and the mixed
         monomials grouped by row support, one row mask + lane part each.
-        A part is cos and sin (factor mode) or the angle (angle mode)."""
+        A part is cos and sin (factor mode) or the angle (angle mode). The
+        lane parts are shared by every entry whose parts are equal (strips
+        that differ only in their row monomials: QFT's) and start on a
+        16-byte boundary (vector loads)."""
         const2, rm2, cm2, mx2 = sg
         by_row: dict = {}
         for rq, cq, c in mx2:
             by_row.setdefault(rq, []).append((cq, c))
         parts = [lane_angles(cm2)] + [lane_angles(t) for t in by_row.values()]
-        ent = [len(ints), len(floats), len(rm2), len(by_row), int(angle_mode)]
+        data = np.concatenate([
+            ang if angle_mode else np.concatenate([np.cos(ang), np.sin(ang)])
+            for ang in parts
+        ]).astype(np.float32)
+        lo = lane_parts.get(data.tobytes())
+        if lo is None:
+            floats.extend([0.0] * (-len(floats) % 4))
+            lo = lane_parts[data.tobytes()] = len(floats)
+            floats.extend(data.tolist())
+        ent = [len(ints), len(floats), len(rm2), len(by_row), int(angle_mode), lo]
         ints.extend(rowmask(rq) for rq, _ in rm2)
         ints.extend(rowmask(rq) for rq in by_row)
         floats.append(const2)
         floats.extend(c for _, c in rm2)
-        for ang in parts:
-            floats.extend(ang if angle_mode else np.concatenate(
-                [np.cos(ang), np.sin(ang)]))
         return ent
 
     for step in body_steps:
@@ -462,7 +551,17 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
                 ints[per + _DIAG_ENT * i : per + _DIAG_ENT * (i + 1)] = (
                     entries[sg]
                 )
-            rec[1:3] = [active, per]
+            ents = [ints[per + _DIAG_ENT * i : per + _DIAG_ENT * (i + 1)]
+                    for i in range(ns) if active >> i & 1]
+            angle = any(e[4] for e in ents)
+            rec[1:4] = [active, per, int(angle)]
+            los = sorted({e[5] for e in ents})
+            if ents and not angle and all(e[3] == 0 for e in ents) and len(los) <= 2:
+                # every strip's factor is its row factor times one of two
+                # lane parts (the register path loads both once)
+                second = sum(1 << i for i in range(ns) if active >> i & 1
+                             and ints[per + _DIAG_ENT * i + 5] == los[-1] != los[0])
+                rec[4:8] = [1, los[0], los[-1], second]
         elif kind in ("cbf", "rbf", "cmix"):
             p, coeffs = step[1], step[2]
             ctrl = step[3] if len(step) > 3 else ()
@@ -525,26 +624,39 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
                 stage_parts = max(stage_parts, 3 if three else 1)
         else:  # mix: {(j, i): complex}
             blocks = step[1]
-            nzoff = len(ints)
-            ints.extend([0] * ns)
-            coef = len(floats)
-            floats.extend([0.0] * (2 * ns * ns))
+            ints.extend([0] * (-len(ints) % 4))  # entries load as int4
+            per = len(ints)
+            ints.extend([0] * (4 * ns))
             active = 0
             for j in range(ns):
                 ent = [
-                    (i, blocks[(j, i)])
+                    (i, complex(blocks[(j, i)]))
                     for i in range(ns)
                     if blocks.get((j, i)) not in (None, 0)
                 ]
                 if len(ent) == 1 and ent[0] == (j, 1):
                     continue  # identity on this strip
                 active |= 1 << j
+                # (input mask, 2 type bits per input, float offset of the
+                # coefficients in input order (8-byte aligned), row class)
+                floats.extend([0.0] * (len(floats) % 2))
+                mask = types = 0
+                cf = len(floats)
                 for i, v in ent:
-                    ints[nzoff + j] |= 1 << i
-                    floats[coef + 2 * (j * ns + i)] = complex(v).real
-                    floats[coef + 2 * (j * ns + i) + 1] = complex(v).imag
+                    mask |= 1 << i
+                    types |= _term_type(v) << (2 * i)
+                    floats.extend([v.real, v.imag])
+                ints[per + 4 * j : per + 4 * j + 4] = [
+                    mask, types, cf, _row_class(v for _, v in ent)]
             cur |= {j for j in range(ns) if active >> j & 1}
-            rec[1:4] = [active, nzoff, coef]
+            rec[1:3] = [active, per]
+            bfly = _mix_butterflies(blocks, ns) if active else None
+            if bfly:
+                rec[3:6] = [len(bfly), len(ints), len(floats)]
+                ints.extend(b for b, _ in bfly)
+                for _, f in bfly:
+                    for v in f.reshape(-1):
+                        add_complex(v)
         recs.append(rec)
 
     base = len(recs) * _REC
@@ -553,8 +665,8 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         kind = KINDS[rec[0]]
         if kind in ("mix", "rmix", "diag"):
             rec[2] += base
-        if kind == "rmix":
-            rec[3] += base
+        if kind == "rmix" or (kind == "mix" and rec[3]):
+            rec[3 if kind == "rmix" else 4] += base
         if kind == "diag":
             per = rec[2] - base
             for i in range(ns):
@@ -574,10 +686,13 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         else np.zeros((1, _C, _C), dtype=np.float32)
     )
     has_rmix = any(s[0] == "rmix" for s in body_steps)
+    kinds = {KINDS[r[0]] for r in recs}
     bt = hopper_tile_rows(h, has_rmix, seg_sizes[-1])
     aux = 2 * stage_parts * _BSTAGE_PAIR_BYTES  # double-buffered B stage
     if any(s[0] == "diag" for s in body_steps):
         aux = max(aux, (bt << h) * 2 * 4)  # row factors of every tile row
+    if ns >= 8 and any(s[0] == "mix" for s in body_steps):
+        aux = max(aux, ns * ns * 2 * 4)  # the tile path's mix table
     prog = WindowProgram(
         n=n,
         seg_sizes=seg_sizes,
@@ -590,9 +705,10 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         iprog=np.ascontiguousarray(iprog),
         fprog=fprog,
         mats=np.ascontiguousarray(mats_arr),
-        kinds=tuple(sorted({KINDS[r[0]] for r in recs})),
+        kinds=tuple(sorted(kinds)),
         max_rbf_bit=max_rbf,
         aux_bytes=aux,
+        path="registers" if kinds <= STREAM_KINDS else "tile",
     )
     if prog.smem_bytes > HOPPER_SMEM_BYTES:
         raise ValueError(
@@ -693,21 +809,37 @@ def window_sweep_reference(
     for s in range(prog.nsteps):
         rec = ip[s * _REC : (s + 1) * _REC]
         kind, active = KINDS[rec[0]], int(rec[1])
-        if kind in ("mix", "rmix"):
+        if kind == "mix":
+            new = {}
+            for j in bits(active):
+                mask, types, cf, _ = (int(v) for v in ip[rec[2] + 4 * j : rec[2] + 4 * j + 4])
+                ar = xr.new_zeros((rows[j].numel(), _C))
+                ai = torch.zeros_like(ar)
+                for i in bits(mask):
+                    (x, y), (cr, ci) = cur[i], cplx(cf)
+                    cf += 2
+                    typ = types >> (2 * i) & 3
+                    if typ == T_ONE:
+                        tr, ti = x, y
+                    elif typ == T_REAL:
+                        tr, ti = cr * x, cr * y
+                    elif typ == T_IMAG:
+                        tr, ti = -(ci * y), ci * x
+                    else:
+                        tr, ti = cr * x - ci * y, cr * y + ci * x
+                    ar, ai = ar + tr, ai + ti
+                new[j] = (ar, ai)
+            cur.update(new)
+        elif kind == "rmix":
             new = {}
             for j in bits(active):
                 ar = xr.new_zeros((rows[j].numel(), _C))
                 ai = torch.zeros_like(ar)
                 for i in range(ns):
-                    if kind == "mix":
-                        if not ip[rec[2] + j] >> i & 1:
-                            continue
-                        typ, pay = 1, rec[3] + 2 * (j * ns + i)
-                    else:
-                        typ = int(ip[rec[2] + 2 * (j * ns + i)])
-                        pay = int(ip[rec[2] + 2 * (j * ns + i) + 1])
-                        if not typ:
-                            continue
+                    typ = int(ip[rec[2] + 2 * (j * ns + i)])
+                    pay = int(ip[rec[2] + 2 * (j * ns + i) + 1])
+                    if not typ:
+                        continue
                     x, y = cur[i]
                     if typ == 1:
                         cr, ci = cplx(pay)
@@ -719,8 +851,8 @@ def window_sweep_reference(
             cur.update(new)
         elif kind == "diag":
             for i in bits(active):
-                io, fo, nr, G, angle_mode = (
-                    int(v) for v in ip[rec[2] + 5 * i : rec[2] + 5 * i + 5]
+                io, fo, nr, G, angle_mode, lo = (
+                    int(v) for v in ip[rec[2] + _DIAG_ENT * i : rec[2] + _DIAG_ENT * (i + 1)]
                 )
                 ang = torch.full(
                     (rows[i].numel(),), float(fp[fo]),
@@ -732,10 +864,7 @@ def window_sweep_reference(
                 gmasks = [int(v) for v in ip[io + nr : io + nr + G]]
                 width = _C if angle_mode else 2 * _C
                 lane = [
-                    torch.as_tensor(
-                        fp[fo + 1 + nr + width * k : fo + 1 + nr + width * (k + 1)],
-                        device=xr.device,
-                    )
+                    torch.as_tensor(fp[lo + width * k : lo + width * (k + 1)], device=xr.device)
                     for k in range(1 + G)
                 ]
                 ons = [((rows[i] & gm) == gm)[:, None] for gm in gmasks]
@@ -808,9 +937,11 @@ def window_sweep_reference(
 # ---------------------------------------------------------------------------
 
 _LIB = None
+_STREAM_LIB = None
 
 
 def _lib():
+    """The tile path's library (csrc/window_sweep.cu)."""
     global _LIB
     if _LIB is None:
         lib = cuda_build.load("window_sweep")
@@ -826,15 +957,32 @@ def _lib():
     return _LIB
 
 
+def _stream_lib():
+    """The register-streaming path's library (csrc/window_stream.cu)."""
+    global _STREAM_LIB
+    if _STREAM_LIB is None:
+        lib = cuda_build.load("window_stream")
+        fn = lib.rq_window_stream
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 8
+            + [ctypes.c_longlong, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _STREAM_LIB = lib
+    return _STREAM_LIB
+
+
 def window_sweep(
     n: int, xr, xi, seg_sizes, ksteps, prog: "WindowProgram | None" = None
 ):
     """Run one strip window over float32 (R, 128) planes, in place.
 
-    A CUDA state launches the Hopper kernel (and counts the launch) or
-    raises; a CPU state takes ``window_sweep_reference``. ``prog`` is the
-    window's encoded step program (``encode_window``); pass it to skip
-    re-encoding (compiled circuits do)."""
+    A CUDA state launches the Hopper kernel of the program's path (and
+    counts the launch) or raises; a CPU state takes
+    ``window_sweep_reference``. ``prog`` is the window's encoded step
+    program (``encode_window``); pass it to skip re-encoding (compiled
+    circuits do)."""
     _check_planes(n, xr, xi)
     if prog is None:
         prog = encode_window(n, seg_sizes, ksteps)
@@ -844,7 +992,8 @@ def window_sweep(
         raise ValueError(f"window_sweep: no kernel for device {xr.device}")
     if not prog.out_mask:
         return xr, xi
-    if (1 << (prog.max_rbf_bit + 1)) > prog.bt:
+    stream = prog.path == "registers"
+    if not stream and (1 << (prog.max_rbf_bit + 1)) > prog.bt:
         raise ValueError(
             f"rbf bit {prog.max_rbf_bit} does not fit a {prog.bt}-row tile "
             "(plan with HopperSmemAdmission)"
@@ -852,19 +1001,29 @@ def window_sweep(
     if xr.data_ptr() % 16 or xi.data_ptr() % 16:
         raise ValueError("window_sweep needs 16-byte aligned planes")
     iprog, fprog, mats = prog.tensors(xr.device)
-    seg = list(prog.seg_sizes) + [1] * (5 - len(prog.seg_sizes))
     srows = xr.shape[0] >> prog.h
     with torch.cuda.device(xr.device):
-        err = _lib().rq_window_sweep(
-            xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
-            mats.data_ptr(), prog.h, prog.nsteps, prog.bt, prog.in_mask,
-            prog.out_mask, int(prog.scratch), prog.aux_bytes, *seg,
-            srows // prog.bt,
-            torch.cuda.current_stream(xr.device).cuda_stream,
-        )
+        cuda_stream = torch.cuda.current_stream(xr.device).cuda_stream
+        if stream:
+            pos = _window_row_positions(prog.seg_sizes)
+            err = _stream_lib().rq_window_stream(
+                xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
+                prog.h, prog.nsteps, prog.in_mask, prog.out_mask,
+                *(pos + [0] * (4 - len(pos))), srows, cuda_stream,
+            )
+        else:
+            seg = list(prog.seg_sizes) + [1] * (5 - len(prog.seg_sizes))
+            err = _lib().rq_window_sweep(
+                xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
+                mats.data_ptr(), prog.h, prog.nsteps, prog.bt, prog.in_mask,
+                prog.out_mask, int(prog.scratch), prog.aux_bytes, *seg,
+                srows // prog.bt, cuda_stream,
+            )
     if err:
         raise RuntimeError(f"window_sweep kernel launch failed: CUDA error {err}")
     LAUNCHES["window_sweep"] += 1
+    if stream:
+        LAUNCHES["window_stream"] += 1
     for k in prog.kinds:
         KIND_LAUNCHES[k] += 1
     return xr, xi

@@ -9,6 +9,8 @@ they also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu*.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +124,72 @@ def test_kernel_refuses_an_rbf_partner_outside_the_tile(cuda):
     x = planes_from_numpy(_state(n), device=cuda)
     with pytest.raises(ValueError, match="tile"):
         wk.window_sweep(n, *x, seg, ksteps, prog=prog)
+
+
+def _register_windows(n):
+    """(name, hq, kernel steps) of windows whose steps are all strip-local:
+    they take the register-streaming path. Mixes by their nonzeros (dense,
+    H on one window bit, a permutation with phases, a controlled mix that
+    leaves half the strips alone), QFT's mix + diag chain, a controlled
+    cmix and the step windows' diags."""
+    rng = np.random.default_rng(20)
+    H = np.array([[1, 1], [1, -1]]) / np.sqrt(2)
+
+    def blocks(m):
+        return {(j, i): complex(m[j, i]) for j in range(m.shape[0])
+                for i in range(m.shape[1]) if m[j, i] != 0}
+
+    perm = np.zeros((16, 16), dtype=complex)
+    perm[np.arange(16), rng.permutation(16)] = np.exp(1j * rng.uniform(0, 6.3, 16))
+    ctl = np.eye(16, dtype=complex)
+    ctl[8:, 8:] = rand_u(3, 21)
+    top = (0, 1, 2, 3)
+    qft_diag = ("diag", (0.1, (((4,), 0.7), ((5, 6), -0.3)), (((14,), 0.2),), ()))
+    wins = [
+        ("mix_dense", top, [("mix", blocks(rand_u(4, 22)))]),
+        ("mix_kron_h4", (2, 4, 6, 8), [("mix", blocks(np.kron(np.kron(H, H), np.kron(H, H))))]),
+        ("mix_permutation", top, [("mix", blocks(perm))]),
+        ("mix_controlled", (1, 3, 5, 7), [("mix", blocks(ctl))]),
+        ("mix_h_then_diag", top, [("mix", blocks(np.kron(H, np.eye(8)))), qft_diag,
+                                  ("mix", blocks(np.kron(np.eye(2), np.kron(H, np.eye(4))))),
+                                  qft_diag]),
+        ("cmix_controlled", (0, 2), [("cmix", 1, tuple(complex(v) for v in rand_u(1, 23).reshape(-1)),
+                                      (("r", 5), ("c", 2)))]),
+    ]
+    wins += [(name, hq, ks) for name, hq, ks, kinds in step_windows(n)
+             if kinds <= wk.STREAM_KINDS]
+    return wins
+
+
+REGISTER_WINDOWS = _register_windows(20)
+
+
+@pytest.mark.parametrize("idx", range(len(REGISTER_WINDOWS)),
+                         ids=[w[0] for w in REGISTER_WINDOWS])
+def test_register_path_matches_plain(cuda, idx):
+    """The register-streaming path against the plain version at n = 20 on
+    a seeded state (1e-6 max abs), against the tile path on the same window,
+    and every strip it does not write left bit for bit as the plain version
+    leaves it."""
+    name, hq, ksteps = REGISTER_WINDOWS[idx]
+    n = 20
+    seg = window_seg_sizes(n, hq)
+    prog = wk.encode_window(n, seg, ksteps)
+    assert prog.path == "registers"
+    x = planes_from_numpy(_state(n, 7), device=cuda)
+    a = (x[0].clone(), x[1].clone())
+    b = (x[0].clone(), x[1].clone())
+    t = (x[0].clone(), x[1].clone())
+    before = wk.LAUNCHES["window_stream"]
+    wk.window_sweep(n, *a, seg, ksteps, prog=prog)
+    wk.window_sweep(n, *t, seg, ksteps, prog=dataclasses.replace(prog, path="tile"))
+    wk.window_sweep_reference(n, *b, seg, ksteps, prog=prog)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["window_stream"] == before + 1
+    for k in range(2):
+        assert (a[k] - b[k]).abs().max().item() <= TOL
+        assert (a[k] - t[k]).abs().max().item() <= TOL
+    for i, (sa, sb) in enumerate(zip(wk._strip_views(prog, a[0]), wk._strip_views(prog, b[0]))):
+        if not prog.out_mask >> i & 1:
+            assert torch.equal(sa, sb)
+            assert torch.equal(wk._strip_views(prog, a[1])[i], wk._strip_views(prog, b[1])[i])

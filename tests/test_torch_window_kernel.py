@@ -139,8 +139,7 @@ def _diag_entries(prog):
     out = {}
     for i in range(ns):
         if rec[1] >> i & 1:
-            io, fo, nr, G, mode = (int(x) for x in prog.iprog[rec[2] + 5 * i : rec[2] + 5 * i + 5])
-            out[i] = (io, fo, nr, G, mode)
+            out[i] = tuple(int(x) for x in prog.iprog[rec[2] + 6 * i : rec[2] + 6 * i + 6])
     return out
 
 
@@ -161,16 +160,16 @@ def test_diag_encoding_is_separable():
         return (cols & m) == m
 
     # strip 0b10 of window (1, 4): qubit 1 = 1, qubit 4 = 0
-    io, fo, nr, G, mode = ents[0b10]
+    io, fo, nr, G, mode, lo = ents[0b10]
     assert mode == 0 and G == 2
     row_support = [int(x) for x in prog.iprog[io + nr : io + nr + G]]
     n_m = n - 7
     assert row_support == [1 << (n_m - 1 - 2), (1 << (n_m - 1 - 5)) | (1 << (n_m - 1 - 6))]
     lane_ang = 0.2 * bits([lane[1]]) - 0.5 * bits([lane[5], lane[6]]) - 0.4 * bits([lane[4], lane[5]])
-    lane_part = prog.fprog[fo + 1 + nr : fo + 1 + nr + 256]
+    lane_part = prog.fprog[lo : lo + 256]
     np.testing.assert_allclose(lane_part[:128], np.cos(lane_ang), atol=1e-7)
     np.testing.assert_allclose(lane_part[128:], np.sin(lane_ang), atol=1e-7)
-    g0 = prog.fprog[fo + 1 + nr + 256 : fo + 1 + nr + 512]
+    g0 = prog.fprog[lo + 256 : lo + 512]
     g0_ang = 0.9 * bits([lane[2]]) + 0.35 * bits([lane[3], lane[4]])
     np.testing.assert_allclose(g0[:128], np.cos(g0_ang), atol=1e-7)
     fan = STEP_WINDOWS["diag_cp_fan"]
