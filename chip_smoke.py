@@ -40,6 +40,10 @@ the kernel-off executors, each against the single-device kernel path.
 QFT-28's op list through ``engine.apply_ops`` (window and row-swap
 kernels), a lane ``apply_op`` (``c64_low_matmul``), a row-pair ``SwapOp``
 and the complex measurement API, each against its plain version.
+``phase_examples`` runs the port twins of the ten programs of
+``examples/`` (``rustqip_tpu_torch/examples/``) on the card, each twice,
+and holds what each prints to its closed form or to its original's value
+(the traced oracle at its full N = 22).
 
 Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``; a register-path window also on the tile path, in
@@ -206,6 +210,7 @@ def phase_env():
         "triton_importable": has_triton,
         "device": torch.cuda.get_device_name(0),
     })
+    return smi
 
 
 def phase_build():
@@ -1894,6 +1899,176 @@ def phase_state_api():
     return total, kinds
 
 
+FLOAT = r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?"
+# phase_examples' twins, in the order they run; the two float32 twins at
+# n >= 12 must launch the window kernel
+EXAMPLES = ("simple", "inverse_example", "invert_fn_example", "macro_example",
+            "phase_estimation_example", "shor_example", "grover_example",
+            "teleport_qasm_example", "traced_oracle_example", "sharded_example")
+EXAMPLES_ON_THE_KERNEL = ("grover_example", "traced_oracle_example")
+
+
+def _printed(pattern, out, name):
+    """The groups of every match of ``pattern`` in a twin's stdout; a twin
+    that printed no match fails."""
+    import re
+
+    found = re.findall(pattern, out, re.M)
+    if not found:
+        raise AssertionError(f"examples {name}: {pattern!r} not in its output {out!r}")
+    return found
+
+
+def _close(name, what, got, want, tol):
+    if not abs(got - want) <= tol:
+        raise AssertionError(f"examples {name}: {what} {got}, want {want} within {tol}")
+
+
+def check_example(name, out, values):
+    """Hold one twin's printed lines and its returned (unrounded) values to
+    the closed form, or to its original's value where the run draws: each
+    printed value must be the returned one at the printed precision.
+    Returns the values the ``examples`` row reports."""
+    import math
+    import re
+
+    import numpy as np
+
+    if name == "simple":
+        ((outcome, chance),) = _printed(rf"^Measured: ([01]) \(with chance ({FLOAT})\)$", out, name)
+        _close(name, "chance", values["chance"], 0.5, KERNEL_TOL)
+        _close(name, "printed chance", float(chance), values["chance"], 0.0)
+        return {"outcome": int(outcome), "chance": values["chance"]}
+    if name == "inverse_example":
+        s = 2 ** -0.5
+        state = [complex(float(a), float(b.replace(" ", ""))) for a, b in _printed(
+            rf"({FLOAT})\s*([-+]\s*(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?)j", out, name)]
+        probs = [float(x) for x in re.findall(FLOAT, out.strip().splitlines()[-1])]
+        for what, got, printed, want in (("state", values["state"], state, [s, 0, 0, s]),
+                                         ("probs", values["probs"], probs, [0.5, 0, 0, 0.5])):
+            _close(name, what, float(np.abs(np.asarray(got) - want).max()), 0.0, KERNEL_TOL)
+            _close(name, "printed " + what, float(np.abs(np.asarray(got) - printed).max()),
+                   0.0, 1e-7)
+        return {"state_err": float(np.abs(values["state"] - np.array([s, 0, 0, s])).max()),
+                "probs": [float(p) for p in values["probs"]]}
+    if name == "invert_fn_example":
+        (index,) = _printed(r"amplitude stayed on the init state: (\d+)$", out, name)
+        if int(index) != values["index"] or values["index"] != 42:
+            raise AssertionError(f"examples {name}: index {index}, want 42")
+        return values
+    if name == "macro_example":
+        ((depth, norm),) = _printed(rf"^pipeline depth: (\d+)\nnorm: ({FLOAT})$", out, name)
+        if int(depth) != values["depth"] or values["depth"] != 117:
+            raise AssertionError(f"examples {name}: depth {depth}, want 117")
+        _close(name, "norm", values["norm"], 1.0, KERNEL_TOL)
+        _close(name, "printed norm", float(norm), values["norm"], 0.0)
+        return values
+    if name == "phase_estimation_example":
+        ((phase, certainty),) = _printed(
+            rf"^estimated phase: ({FLOAT}) \(certainty ({FLOAT})\)$", out, name)
+        if not float(phase) == values["phase"] == 21 / 64:
+            raise AssertionError(f"examples {name}: phase {phase}, want 21/64")
+        _close(name, "certainty", values["certainty"], 1.0, 1e-10)
+        _close(name, "printed certainty", float(certainty), values["certainty"], 5e-7)
+        return values
+    if name == "shor_example":
+        ((period, p, q),) = _printed(
+            r"^period of 7 mod 15: (\d+)\nfactor\(15\): \((\d+), (\d+)\)$", out, name)
+        if (int(period), (int(p), int(q))) != (values["period"], values["factors"]) \
+                or values["period"] != 4 or values["factors"] != (3, 5):
+            raise AssertionError(f"examples {name}: {values}, want 4 and (3, 5)")
+        return {"period": values["period"], "factors": list(values["factors"])}
+    if name == "grover_example":
+        marked = 0b101101011001
+        printed = _printed(rf"found=(0b[01]+) p=({FLOAT})$", out, name)
+        passes = [int(x) for x in _printed(r"^fused passes: (\d+) ", out, name)]
+        for (found, p), f, pv in zip(printed, values["found"], values["p"]):
+            if not int(found, 2) == f == marked or pv < 0.999:
+                raise AssertionError(f"examples {name}: found {found} at p {pv}, "
+                                     f"want {marked:#014b} at p >= 0.999")
+            _close(name, "printed p", float(p), pv, 5e-5)
+        if len(printed) != 2 or passes != [s.fused_passes for s in values["stats"]]:
+            raise AssertionError(f"examples {name}: printed {printed}, passes {passes}")
+        return {"p": list(values["p"]), "fused_passes": passes}
+    if name == "teleport_qasm_example":
+        rows = _printed(rf"^seed=(\d): outcomes=\(([01]),([01])\) "
+                        rf"teleported fidelity=({FLOAT})$", out, name)
+        if len(rows) != 4:
+            raise AssertionError(f"examples {name}: {len(rows)} seeds printed, want 4")
+        for (_, m0, m1, fid), (v0, v1, vf) in zip(rows, values["runs"]):
+            if (int(m0), int(m1)) != (v0, v1) or vf < 1 - KERNEL_TOL:
+                raise AssertionError(f"examples {name}: outcomes ({m0},{m1}) at fidelity {vf}")
+            _close(name, "printed fidelity", float(fid), vf, 5e-11)
+        return {"outcomes": [[v0, v1] for v0, v1, _ in values["runs"]],
+                "fidelity": [vf for _, _, vf in values["runs"]]}
+    if name == "traced_oracle_example":
+        ((x, p),) = _printed(rf"^solution x = (0x[0-9a-f]+); p = ({FLOAT}) ", out, name)
+        want = math.sin(7 * math.asin(2.0 ** -11)) ** 2
+        if not int(x, 16) == values["x"] == 0x1B6070:
+            raise AssertionError(f"examples {name}: x {x}, want 0x1b6070")
+        _close(name, "p / closed form", values["p"] / want, 1.0, 1e-4)
+        _close(name, "printed p / p", float(p) / values["p"], 1.0, 5e-4)
+        return {"x": values["x"], "p": values["p"], "want": want}
+    if name == "sharded_example":
+        ((mesh, qubits),) = _printed(r"^devices: 1, mesh: (\d+), qubits: (\d+)$", out, name)
+        rows = _printed(rf"^ *(gspmd|explicit): state split into (\d+) shard\(s\) on 1 "
+                        rf"device\(s\); norm = ({FLOAT}); top outcome p = ({FLOAT})$", out, name)
+        if (int(mesh), int(qubits)) != (8, 7) or [r[0] for r in rows] != ["gspmd", "explicit"] \
+                or any(int(r[1]) != 8 for r in rows):
+            raise AssertionError(f"examples {name}: mesh {mesh}, qubits {qubits}, rows {rows}")
+        for strategy, _, norm, top in rows:
+            v = values[strategy]
+            _close(name, f"{strategy} norm", v["norm"], 1.0, KERNEL_TOL)
+            _close(name, f"{strategy} top p", v["top_p"], 1 / 64, KERNEL_TOL)
+            _close(name, f"{strategy} printed norm", float(norm), v["norm"], 5e-7)
+            _close(name, f"{strategy} printed top p", float(top), v["top_p"], 5e-5)
+        return {s: values[s] for s in ("gspmd", "explicit")}
+    raise KeyError(name)
+
+
+def phase_examples(smi):
+    """The ten example programs' port twins (``rustqip_tpu_torch/examples``)
+    on the card: each ``main()`` with its default device, twice (a first
+    and a warm call; host clock after a CUDA synchronise), its stdout
+    captured and held by ``check_example``. The launch counts are zeroed
+    just before and read just after each call; the first call's go to the
+    totals, and Grover-12 and the traced oracle at N = 22 must launch the
+    window kernel. One ``examples`` row per twin. Returns the launch and
+    step-kind totals."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from rustqip_tpu_torch.engine import window_kernel as wk
+
+    total, kinds = Counter(), Counter()
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"rustqip_tpu_torch.examples.{name}")
+        calls = []
+        for _ in ("first", "warm"):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                values = mod.main()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            calls.append((ms, read_launches(), dict(wk.KIND_LAUNCHES),
+                          check_example(name, buf.getvalue(), values)))
+        (first_ms, launches, kind_launches, checked), (warm_ms, warm_launches, _, _) = calls
+        if name in EXAMPLES_ON_THE_KERNEL and not launches["window_sweep"]:
+            raise AssertionError(f"examples {name}: no window kernel launch ({launches})")
+        total.update(launches)
+        kinds.update(kind_launches)
+        emit({"phase": "examples", "example": name, "first_ms": first_ms, "warm_ms": warm_ms,
+              "launches": launches, "warm_launches": warm_launches, "checked": checked,
+              "nvidia_smi": smi})
+    return total, kinds
+
+
 def phase_window_breakdown(ccs):
     """Each kernel window of QFT-28, the gate-form Grover-28 iteration,
     QPE-28 and Shor-28 alone, on a seeded random state: kernel time (median of
@@ -2330,7 +2505,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
-    phase_env()
+    smi = phase_env()
     phase_build()
     if sys.argv[1:] == ["--step-breakdown"]:
         # a quick check and measurement: the parity windows, the kernel
@@ -2363,6 +2538,9 @@ def main() -> int:
     api_launches, api_kinds = phase_state_api()
     launches = {k: launches[k] + api_launches[k] for k in launches}
     kind_launches = dict(Counter(kind_launches) + api_kinds)
+    ex_launches, ex_kinds = phase_examples(smi)
+    launches = {k: launches[k] + ex_launches[k] for k in launches}
+    kind_launches = dict(Counter(kind_launches) + ex_kinds)
     kms, pms, qft_err, bound, stream = phase_window_breakdown(ccs)
     step_err, mix_library = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)

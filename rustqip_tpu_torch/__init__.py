@@ -22,9 +22,10 @@ The native C++ CPU engine (``engine/cpu_native.py``, ``csrc/qip_engine.cpp``)
 is an oracle independent of torch and the CPU baseline.
 """
 
+from rustqip_tpu_torch import prelude
 from rustqip_tpu_torch.errors import CircuitError
 from rustqip_tpu_torch.types import PiRational, Representation
 
 __version__ = "0.1.0"
 
-__all__ = ["CircuitError", "PiRational", "Representation"]
+__all__ = ["prelude", "CircuitError", "PiRational", "Representation"]

@@ -62,7 +62,7 @@ class CircuitStats:
         if self.fused_passes is not None:
             lines.append(
                 f"fused passes: {self.fused_passes} "
-                f"(~{self.est_hbm_traffic_bytes / 1e9:.2f} GB state traffic)"
+                f"(~{self.est_hbm_traffic_bytes / 1e9:.2f} GB HBM traffic)"
             )
         return "\n".join(lines)
 
