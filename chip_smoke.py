@@ -243,8 +243,10 @@ def seeded_state(n: int, seed: int, device):
 
 
 def phase_parity():
-    """Kernel vs plain on the parity windows at n=20 (f32); a window on
-    the register-streaming path is checked on the tile path too."""
+    """Kernel vs plain on the parity windows at n=20 (f32): the planned
+    sequences, the step windows and the tile path's windows (h = 0-4,
+    several 8-row tiles to a CTA); a window on the register-streaming path
+    is checked on the tile path too."""
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
@@ -253,6 +255,7 @@ def phase_parity():
         build_sequences,
         lowr_sequence,
         step_windows,
+        tile_windows,
     )
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps
 
@@ -286,7 +289,7 @@ def phase_parity():
         rows.append({"window": name, "kinds": sorted(kinds), "paths": sorted(paths),
                      "max_abs_diff": diff})
         paths = set()
-    for name, hq, ksteps, kinds in step_windows(n):
+    for name, hq, ksteps, kinds in step_windows(n) + tile_windows(n):
         seg = window_seg_sizes(n, hq)
         prog = wk.encode_window(n, seg, ksteps)
         pr, pi = re0.clone(), im0.clone()
@@ -2153,7 +2156,12 @@ def phase_step_breakdown(ccs):
     """One window per redesigned step kind, alone, at n = 28 on a seeded
     state, and the element-wise h = 4 windows of QFT-28 and Grover-28 (a
     whole window, one of its mix and diag steps alone, mix-only windows
-    with 16 and 1 nonzeros per output strip): kernel ms (CUDA events,
+    with 16 and 1 nonzeros per output strip), and the tile path's windows
+    (QFT-28's h = 0 lane ladder whole, each of its step kinds alone, its
+    butterflies, its diags, its last two steps and the ladder without its
+    ``low``; Grover-28's h = 2 lane window of 8-row tiles and
+    its diffusion ``rmix``; a lone ``low`` with a complex B and a lone
+    ``lowr``, and ``c64_low_matmul`` through its wrapper): kernel ms (CUDA events,
     median of REPS after a warm-up; a register-path window also on the
     tile path, in turns), the plain version's ms, the bound, and the one
     PyTorch call that computes the same function where there is one (timed
@@ -2208,10 +2216,31 @@ def phase_step_breakdown(ccs):
     qft_seg, qft_steps, qft_prog = next(p for p in kwindows("qft28") if p[2].h == 4)
     dense = mix_only(16)
     top = tuple(window_seg_sizes(n, (0, 1, 2, 3)))  # strips = the top row bits
+    # the tile path's windows: QFT-28's h = 0 lane ladder, each of its step
+    # kinds alone, and Grover-28's h = 2 lane window (8-row tiles)
+    lad_seg, lad_steps, lad_prog = next(p for p in kwindows("qft28") if p[2].h == 0)
+
+    def ladder_step(kind, bit=None):
+        return [next(s for s in lad_steps if s[0] == kind and (bit is None or s[1] == bit))]
+
+    grover_lane = next(p for p in kwindows("grover28_iteration_gate")
+                       if p[2].h == 2 and [s[0] for s in p[1]] == ["mix", "rbf", "rbf", "rbf", "low"])
     cases = [
         ("low_c64_low_matmul", (R,), [("low", B)], None),
         ("lowr_h0", (R,), [("low", Br)], None),
         ("rmix_grover_diffusion", *grover_rmix),
+        ("qft28_lane_ladder", lad_seg, lad_steps, lad_prog),
+        ("qft28_ladder_rbf0_alone", lad_seg, ladder_step("rbf", 0), None),
+        ("qft28_ladder_rbf6_alone", lad_seg, ladder_step("rbf", 6), None),
+        ("qft28_ladder_diag_alone", lad_seg, ladder_step("diag"), None),
+        ("qft28_ladder_cbf_alone", lad_seg, ladder_step("cbf"), None),
+        ("qft28_ladder_low_alone", lad_seg, ladder_step("low"), None),
+        ("qft28_ladder_without_low", lad_seg, [s for s in lad_steps if s[0] != "low"], None),
+        ("qft28_ladder_cbf_low", lad_seg, lad_steps[-2:], None),
+        ("qft28_ladder_butterflies_only", lad_seg,
+         [s for s in lad_steps if s[0] in ("rbf", "cbf")], None),
+        ("qft28_ladder_diags_only", lad_seg, [s for s in lad_steps if s[0] == "diag"], None),
+        ("grover28_h2_lane_window", *grover_lane),
         ("diag_qft_cp_fan", *lone("diag_cp_fan"), None),
         ("diag_many_groups", *lone("diag_many_groups"), None),
         # the window kernel's element-wise h = 4 windows
@@ -2230,6 +2259,7 @@ def phase_step_breakdown(ccs):
     ]
     worst = 0.0
     mix_library = None
+    lane_matmul = None
     for name, seg, ksteps, prog in cases:
         if prog is None:
             prog = wk.encode_window(n, seg, ksteps)
@@ -2261,21 +2291,26 @@ def phase_step_breakdown(ccs):
             row["tile_ms"] = min(ms[0], ms[3])
             row["turns_ms"] = ms
         if name == "low_c64_low_matmul":
-            # the user-facing function (it runs the kernel on copies)
+            # the user-facing function (it reads its input, writes fresh planes)
             row["c64_low_matmul_ms"] = cuda_ms(lambda: wk.c64_low_matmul(kr, ki, B))
-            xc = torch.complex(kr, ki)
-            bc = torch.as_tensor(np.ascontiguousarray(B.T), dtype=torch.complex64,
-                                 device="cuda")
-            row["library_ms"] = cuda_ms(lambda: torch.matmul(xc, bc))
-            row["library_call"] = "torch.matmul complex64 (R,128)@(128,128), full fp32"
-            del xc
-        elif name == "lowr_h0":
-            x2 = torch.cat([kr, ki])
-            bt = torch.as_tensor(np.ascontiguousarray(Br.T), dtype=torch.float32,
-                                 device="cuda")
-            row["library_ms"] = cuda_ms(lambda: torch.matmul(x2, bt))
-            row["library_call"] = "torch.matmul float32 (2R,128)@(128,128), full fp32"
-            del x2
+            lane_matmul = row
+        if len(ksteps) == 1 and ksteps[0][0] == "low" and prog.h == 0:
+            # one lane matrix on every row: one torch.matmul, complex64 for
+            # a complex B, float32 over both planes for a real one
+            Bl = np.asarray(ksteps[0][1])
+            if np.any(np.imag(Bl)):
+                xc = torch.complex(kr, ki)
+                bc = torch.as_tensor(np.ascontiguousarray(Bl.T), dtype=torch.complex64,
+                                     device="cuda")
+                row["library_ms"] = cuda_ms(lambda: torch.matmul(xc, bc))
+                row["library_call"] = "torch.matmul complex64 (R,128)@(128,128), full fp32"
+            else:
+                xc = torch.cat([kr, ki])
+                bc = torch.as_tensor(np.ascontiguousarray(np.real(Bl).T), dtype=torch.float32,
+                                     device="cuda")
+                row["library_ms"] = cuda_ms(lambda: torch.matmul(xc, bc))
+                row["library_call"] = "torch.matmul float32 (2R,128)@(128,128), full fp32"
+            del xc, bc
         elif name in ("mix16_top_row_bits", "mix16_unfactored_top_row_bits"):
             (mix,) = ksteps
             m = torch.tensor([[complex(mix[1].get((j, i), 0)) for i in range(16)]
@@ -2289,7 +2324,9 @@ def phase_step_breakdown(ccs):
         del kr, ki
         torch.cuda.empty_cache()
         emit(row)
-    return worst, mix_library
+    lane_matmul = {k: lane_matmul[k] for k in ("ms", "c64_low_matmul_ms", "plain_ms", "bound_ms",
+                                               "library_ms")}
+    return worst, mix_library, lane_matmul
 
 
 def _field(n_m, pairs):
@@ -2542,7 +2579,7 @@ def main() -> int:
     launches = {k: launches[k] + ex_launches[k] for k in launches}
     kind_launches = dict(Counter(kind_launches) + ex_kinds)
     kms, pms, qft_err, bound, stream = phase_window_breakdown(ccs)
-    step_err, mix_library = phase_step_breakdown(ccs)
+    step_err, mix_library, lane_matmul = phase_step_breakdown(ccs)
     swap = phase_swap_breakdown(ccs)
     phase_circuit_breakdown(ccs)
     copy = phase_copy_floor()
@@ -2566,6 +2603,9 @@ def main() -> int:
             # no one PyTorch call computes a window's step chain; the lone
             # matrix steps' library calls are in the step_breakdown rows
             "library_ms": None,
+            # c64_low_matmul (R = 2^21, complex B): its window alone, the
+            # wrapper, and torch.matmul complex64 of the same product
+            "c64_low_matmul": lane_matmul,
         },
         {
             # the register-streaming path of the same kernel (its launches

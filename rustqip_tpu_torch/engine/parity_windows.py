@@ -196,3 +196,101 @@ def step_windows(n: int = N):
              ((1,), (lane[4], lane[5]), -0.4), ((5, 6), (lane[0],), 1.3)),
         ))], {"diag"}),
     ]
+
+
+def tile_windows(n: int = N):
+    """[(name, window qubits, kernel steps, expected step kinds)]: windows
+    of the tile path (``csrc/window_sweep.cu``) written directly as kernel
+    steps, one per shape its design treats apart, at the tile the H100's
+    admission picks for ``n`` (``hopper_tile_rows``): an h = 0 lane ladder
+    (row butterflies from the tile's highest bit down, each behind a
+    controlled-phase fan, a lane butterfly and a complex lane matrix); a
+    lone real lane matrix; Grover-shaped h = 2 windows of 8-row tiles,
+    several to a CTA (dense factored mix, controlled row butterflies, a
+    real lane matrix, a controlled lane butterfly) and their rmix with
+    real, complex and scalar blocks; lane butterflies on the two lowest
+    lane bits (both members in one 16-byte unit) and a diag of six
+    row-support groups (angle mode); a factored mix that reads
+    one strip and writes two (the other starts at 0); and, from n = 13 and
+    14, an h = 3 window (controlled cmix, rbf, real lane matrix) and an
+    h = 4 window (a mix that does not factor per window bit, a controlled
+    rbf, a complex lane matrix). Every window is one the tile path admits at ``n``."""
+    from rustqip_tpu_torch.engine.admission import hopper_tile_rows, window_seg_sizes
+
+    lane = [n - 7 + k for k in range(7)]  # lane qubits, high to low
+    n_m = n - 7
+    s2 = 1 / np.sqrt(2)
+    H = (s2, s2, s2, -s2)
+
+    def u2(seed):
+        return tuple(complex(v) for v in rand_u(1, seed).reshape(-1))
+
+    def row_qubit(pos):
+        return n_m - 1 - pos
+
+    def fan(pos, seed):
+        r = np.random.default_rng(seed)
+        return ("diag", (0.0, (), (), tuple(
+            ((row_qubit(pos),), (lane[j],), float(r.uniform(-np.pi, np.pi))) for j in range(7))))
+
+    bt0 = hopper_tile_rows(0, False, 1 << n_m)
+    top = bt0.bit_length() - 2
+    ladder = []
+    for b in range(top, -1, -1):
+        ladder += [("rbf", b, H), fan(b, 80 + b)]
+    ladder += [("cbf", 6, H), ("low", rand_u(7, 71))]
+    # two window bits right above an 8-row tile (Grover-28's seg (., 1, 8))
+    hq2 = (row_qubit(4), row_qubit(3))
+    hh = np.kron(np.array([[s2, s2], [s2, -s2]]), np.array([[s2, s2], [s2, -s2]]))
+    B1, B2 = rand_u(7, 73), rand_u(7, 74)
+    wins = [
+        ("lane_ladder_h0", (), ladder, {"rbf", "diag", "cbf", "low"}),
+        ("lowr_h0", (), [("low", real_orthogonal(75))], {"lowr"}),
+        ("lane_window_h2_bt8", hq2, [
+            ("mix", {(j, i): complex(hh[j, i]) for j in range(4) for i in range(4)}),
+            ("rbf", 2, H, (("r", 0),)),
+            ("rbf", 1, u2(76), (("r", 4),)),  # dead on strips whose bit is 0
+            ("rbf", 0, H),
+            ("low", real_orthogonal(77)),
+            ("cbf", 0, u2(78), (("c", 5),)),
+        ], {"mix", "rbf", "lowr", "cbf"}),
+        ("rmix_h2_bt8", hq2, [("rmix", {
+            (0, 0): ("mat", B1), (0, 1): ("scalar", 0.3 - 0.2j),
+            (1, 0): ("mat", real_orthogonal(79)), (1, 1): ("mat", B2),
+            (2, 2): ("scalar", 0.5), (2, 3): ("mat", B1),
+            (3, 2): ("mat", B2), (3, 3): ("scalar", -0.4j), (3, 0): ("mat", B1),
+        })], {"rmix"}),
+        ("cbf_low_lane_bits_h1", (row_qubit(3),), [
+            ("mix", {(0, 0): 0.6, (0, 1): 0.8, (1, 0): 0.8j, (1, 1): -0.6j}),
+            ("cbf", 1, u2(81), (("c", 0),)),
+            ("cbf", 0, H, (("r", 1), ("c", 6))),
+            ("cbf", 2, u2(82)),
+            # six row-support groups over the tile's rows: angle mode
+            ("diag", (0.1, (), (), tuple(
+                (tuple(row_qubit(b) for b in rows), (lane[j],), 0.3 + 0.1 * j)
+                for j, rows in enumerate(((0,), (1,), (2,), (0, 1), (1, 2), (0, 2)))))),
+        ], {"mix", "cbf", "diag"}),
+        ("mix_one_strip_in_h1", (row_qubit(3),), [
+            ("mix", {(0, 0): 0.6, (1, 0): 0.8j}),
+            ("rbf", 2, u2(83)),
+        ], {"mix", "rbf"}),
+    ]
+    if n_m >= 6:
+        hq3 = (row_qubit(n_m - 1), row_qubit(n_m - 2), row_qubit(n_m - 3))
+        bt3 = hopper_tile_rows(3, False, window_seg_sizes(n, hq3)[-1])
+        wins.append(("h3_cmix_rbf_lowr", hq3, [
+            ("cmix", 1, u2(84), (("c", 3),)),
+            ("rbf", bt3.bit_length() - 2, H),
+            ("low", real_orthogonal(85)),
+        ], {"cmix", "rbf", "lowr"}))
+    if n_m >= 7:
+        hq4 = tuple(row_qubit(n_m - 1 - k) for k in range(4))
+        d = rand_u(4, 86)
+        wins.append(("h4_table_mix_rbf_low", hq4, [
+            # two terms an output strip that factor per window bit in no way:
+            # the tile path's coefficient table
+            ("mix", {(j, i): complex(d[j, i]) for j in range(16) for i in (j, (5 * j + 3) % 16)}),
+            ("rbf", 2, H, (("r", 0),)),
+            ("low", rand_u(7, 87)),
+        ], {"mix", "rbf", "low"}))
+    return wins

@@ -321,9 +321,66 @@ DIAG_MASK_MAX = 4
 #: Per-strip diag entry: (int offset, float offset, nr, G, angle mode,
 #: float offset of the lane parts).
 _DIAG_ENT = 6
-#: Matrix steps stage B in chunks of 16 k x 128 lanes, hi and lo halves,
-#: double-buffered: bytes of one staged part pair (csrc: KC, BPART).
-_BSTAGE_PAIR_BYTES = 2 * _C * 16 * 4
+#: Matrix steps stream B through a ring of shared-memory stages in chunks
+#: of 16 k x 128 lanes (csrc: KC, PART_BYTES): a chunk holds B's TF32 hi
+#: and lo parts, split on the host, then, for a complex B, its imaginary
+#: hi and lo parts; each part laid out as wgmma reads it.
+_KC = 16
+_PART = _C * _KC  # floats of one hi or lo part of a chunk
+#: Stages of the B ring: a third or fourth measured no faster, and the
+#: shared memory they take from L1 slows the element-wise steps.
+_MAX_STAGES = 2
+#: Shared memory for diag row factors or the tile path's mix table.
+_SMALL_AUX = 2048
+#: Most slabs (tiles x strips) one CTA holds (csrc: rq_window_sweep).
+_MAX_SLABS = 16
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32`` on float32 values: round to 10 explicit
+    mantissa bits, to nearest with ties away from zero (the 13 low bits of
+    the result are 0)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(x: np.ndarray):
+    """(hi, lo) TF32 parts of float32 values, as the kernel splits its A
+    operand: hi = tf32(x), lo = tf32(x - hi) (so |x - hi - lo| <= 2^-22 |x|)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round((x - hi).astype(np.float32))
+
+
+def _chunk_index():
+    """Gather indices (n, k) of B for every float of a chunk part, per
+    chunk: [chunk kc][kk][8-lane core nc][k core kq][lane r][e]. wgmma
+    reads a k8 step as 8 x 16-byte core matrices (no swizzle, K-major: the
+    two k cores of a step 128 B apart, the 16 lane cores 256 B apart), and
+    the k order inside a chunk is permuted as the kernel reads its A
+    values (one float4 of k = 4q .. 4q + 3 per row): slot e of core kq in
+    step kk is k = 16 kc + 4 e + 2 kk + kq."""
+    kc, kk, nc, kq, r, e = np.meshgrid(
+        np.arange(_C // _KC), np.arange(2), np.arange(_C // 8), np.arange(2),
+        np.arange(8), np.arange(4), indexing="ij",
+    )
+    n = (8 * nc + r).reshape(_C // _KC, _PART)
+    k = (_KC * kc + 4 * e + 2 * kk + kq).reshape(_C // _KC, _PART)
+    return n, k
+
+
+_CHUNK_N, _CHUNK_K = _chunk_index()
+
+
+def b_chunks(re: np.ndarray, im: "np.ndarray | None" = None) -> np.ndarray:
+    """The 8 chunks of one matrix B (row c = output lane c, as the kernel
+    reads it; float32), (8, parts x 2048) float32: hi and lo of B's real
+    part, then hi and lo of its imaginary part for a complex B."""
+    parts = []
+    for b in (re,) if im is None else (re, im):
+        hi, lo = tf32_split(b)
+        parts += [hi[_CHUNK_N, _CHUNK_K], lo[_CHUNK_N, _CHUNK_K]]
+    return np.concatenate(parts, axis=1)
 
 
 @dataclass(eq=False)
@@ -343,9 +400,19 @@ class WindowProgram:
     mats: np.ndarray
     kinds: Tuple[str, ...]
     max_rbf_bit: int
-    #: Shared memory after the tile (and rmix scratch): staged matrix
-    #: chunks or diag row factors.
-    aux_bytes: int = 0
+    #: The tile path's B stream: every chunk of every matrix use, in the
+    #: order the matrix steps consume them (``b_chunks``; float32 bits).
+    bstream: np.ndarray = field(default_factory=lambda: np.zeros(4, np.float32))
+    #: Its chunks: int offset in ``iprog`` of (16-byte offset, bytes) each.
+    chunk_tab: int = 0
+    nchunks: int = 0
+    #: The B ring: stages of ``stage_bytes`` after the tile.
+    nstage: int = 0
+    stage_bytes: int = 0
+    #: Tiles one CTA of the tile path takes (disjoint, consecutive): up to
+    #: 128 rows in all (64 with rmix), so that a matrix step's GEMM is at
+    #: least one 64-row wgmma block where the window allows.
+    group: int = 1
     #: "registers" (csrc/window_stream.cu) for a window of ``STREAM_KINDS``
     #: steps, "tile" (csrc/window_sweep.cu) otherwise. A register-path
     #: program with ``path="tile"`` (``dataclasses.replace``) runs the same
@@ -355,19 +422,21 @@ class WindowProgram:
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of one CTA (header + tile + aux)."""
-        tile = (_C * 8 * self.bt << self.h) * (2 if self.scratch else 1)
-        return HOPPER_SMEM_HEADER + tile + self.aux_bytes
+        """Dynamic shared memory of one tile-path CTA: header, tile (and
+        rmix scratch), the small aux area and the B ring."""
+        tile = (_C * 8 * self.bt * self.group << self.h) * (2 if self.scratch else 1)
+        return (HOPPER_SMEM_HEADER + tile + _SMALL_AUX
+                + self.nstage * self.stage_bytes)
 
     def tensors(self, device) -> tuple:
-        """(iprog, fprog, mats) on ``device``, uploaded once."""
+        """(iprog, fprog, bstream) on ``device``, uploaded once."""
         key = str(torch.device(device))
         got = self._dev.get(key)
         if got is None:
             got = (
                 torch.as_tensor(self.iprog, device=device),
                 torch.as_tensor(self.fprog, device=device),
-                torch.as_tensor(self.mats, device=device),
+                torch.as_tensor(self.bstream, device=device),
             )
             self._dev[key] = got
         return got
@@ -478,7 +547,7 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
     floats: list = []
     cur = set(in_ids)
     max_rbf = -1
-    stage_parts = 0  # B parts a matrix step stages: 1 (real), 3 (Karatsuba)
+    uses: list = []  # (operand index, complex) of each matrix use, in order
 
     def add_complex(v) -> int:
         off = len(floats)
@@ -584,7 +653,7 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
             rec[1:6] = [active, p, rm, cm, foff]
         elif kind in ("low", "lowr"):
             rec[1:3] = [mask_of(cur), step[1]]
-            stage_parts = max(stage_parts, 3 if kind == "low" else 1)
+            uses.append((step[1], kind == "low"))
         elif kind == "rmix":
             blocks = step[1]
             terms = len(ints)
@@ -620,8 +689,7 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
                 ints.extend([pay, int(cplx)])
             three = any(distinct.values())
             rec[1:6] = [active, terms, mlist, len(distinct), int(three)]
-            if distinct:
-                stage_parts = max(stage_parts, 3 if three else 1)
+            uses.extend(distinct.items())
         else:  # mix: {(j, i): complex}
             blocks = step[1]
             ints.extend([0] * (-len(ints) % 4))  # entries load as int4
@@ -672,6 +740,33 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
             for i in range(ns):
                 if rec[1] >> i & 1:
                     ints[per + _DIAG_ENT * i] += base
+    has_rmix = any(s[0] == "rmix" for s in body_steps)
+    bt = hopper_tile_rows(h, has_rmix, seg_sizes[-1])
+    # Tiles per CTA: consecutive tiles up to the rows one tile of the
+    # budget holds (hopper_tile_rows), so small tiles (8 rows a strip) meet
+    # in one 64- or 128-row GEMM.
+    n_tiles = int(np.prod(seg_sizes)) // bt
+    group = 1
+    while (2 * group * ns * bt <= (64 if has_rmix else 128)
+           and 2 * group * ns <= _MAX_SLABS and n_tiles % (2 * group) == 0):
+        group *= 2
+    # The B stream and its chunk table (16-byte offset, bytes per chunk).
+    mats_b = [m.T.astype(np.float32) for m in mats]
+    chunks = [
+        b_chunks(mats_b[idx], mats_b[idx + 1] if cplx else None)
+        for idx, cplx in uses
+    ]
+    chunk_tab = base + len(ints)
+    off = 0
+    for ch in chunks:
+        for _ in range(_C // _KC):
+            ints.extend([off // 4, 4 * ch.shape[1]])
+            off += ch.shape[1]
+    nchunks = len(chunks) * (_C // _KC)
+    bstream = (
+        np.ascontiguousarray(np.concatenate([c.reshape(-1) for c in chunks]))
+        if chunks else np.zeros(4, dtype=np.float32)
+    )
     iprog = np.asarray(
         [v for rec in recs for v in rec] + ints, dtype=np.int64
     )
@@ -685,14 +780,8 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         if mats
         else np.zeros((1, _C, _C), dtype=np.float32)
     )
-    has_rmix = any(s[0] == "rmix" for s in body_steps)
     kinds = {KINDS[r[0]] for r in recs}
-    bt = hopper_tile_rows(h, has_rmix, seg_sizes[-1])
-    aux = 2 * stage_parts * _BSTAGE_PAIR_BYTES  # double-buffered B stage
-    if any(s[0] == "diag" for s in body_steps):
-        aux = max(aux, (bt << h) * 2 * 4)  # row factors of every tile row
-    if ns >= 8 and any(s[0] == "mix" for s in body_steps):
-        aux = max(aux, ns * ns * 2 * 4)  # the tile path's mix table
+    stage_bytes = max((4 * c.shape[1] for c in chunks), default=0)
     prog = WindowProgram(
         n=n,
         seg_sizes=seg_sizes,
@@ -707,9 +796,18 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         mats=np.ascontiguousarray(mats_arr),
         kinds=tuple(sorted(kinds)),
         max_rbf_bit=max_rbf,
-        aux_bytes=aux,
+        bstream=bstream,
+        chunk_tab=chunk_tab,
+        nchunks=nchunks,
+        stage_bytes=stage_bytes,
+        group=group,
         path="registers" if kinds <= STREAM_KINDS else "tile",
     )
+    if nchunks:
+        room = (HOPPER_SMEM_BYTES - prog.smem_bytes) // stage_bytes
+        prog.nstage = min(_MAX_STAGES, nchunks, room)
+        if prog.nstage < 1:
+            raise ValueError("window leaves no shared memory for a B stage")
     if prog.smem_bytes > HOPPER_SMEM_BYTES:
         raise ValueError(
             f"window needs {prog.smem_bytes} B of shared memory "
@@ -947,8 +1045,8 @@ def _lib():
         lib = cuda_build.load("window_sweep")
         fn = lib.rq_window_sweep
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 11
             + [ctypes.c_longlong] * 6
             + [ctypes.c_void_p]
         )
@@ -974,9 +1072,13 @@ def _stream_lib():
 
 
 def window_sweep(
-    n: int, xr, xi, seg_sizes, ksteps, prog: "WindowProgram | None" = None
+    n: int, xr, xi, seg_sizes, ksteps, prog: "WindowProgram | None" = None,
+    out=None,
 ):
-    """Run one strip window over float32 (R, 128) planes, in place.
+    """Run one strip window over float32 (R, 128) planes, in place, or,
+    with ``out=(yr, yi)``, from (xr, xi) into fresh planes of the same
+    shape (a tile-path window that writes every strip; the input is left
+    alone).
 
     A CUDA state launches the Hopper kernel of the program's path (and
     counts the launch) or raises; a CPU state takes
@@ -986,21 +1088,32 @@ def window_sweep(
     _check_planes(n, xr, xi)
     if prog is None:
         prog = encode_window(n, seg_sizes, ksteps)
+    if out is not None:
+        _check_planes(n, *out)
+        if prog.out_mask != (1 << (1 << prog.h)) - 1 or prog.path != "tile":
+            raise ValueError("window_sweep: out= needs a tile-path window that writes every strip")
+        if xr.device != out[0].device:
+            raise ValueError("window_sweep: out= planes must share the input's device")
     if xr.device.type == "cpu":
+        if out is not None:
+            out[0].copy_(xr)
+            out[1].copy_(xi)
+            xr, xi = out
         return window_sweep_reference(n, xr, xi, seg_sizes, ksteps, prog=prog)
     if xr.device.type != "cuda":
         raise ValueError(f"window_sweep: no kernel for device {xr.device}")
     if not prog.out_mask:
         return xr, xi
+    yr, yi = (xr, xi) if out is None else out
     stream = prog.path == "registers"
     if not stream and (1 << (prog.max_rbf_bit + 1)) > prog.bt:
         raise ValueError(
             f"rbf bit {prog.max_rbf_bit} does not fit a {prog.bt}-row tile "
             "(plan with HopperSmemAdmission)"
         )
-    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in (xr, xi, yr, yi)):
         raise ValueError("window_sweep needs 16-byte aligned planes")
-    iprog, fprog, mats = prog.tensors(xr.device)
+    iprog, fprog, bstream = prog.tensors(xr.device)
     srows = xr.shape[0] >> prog.h
     with torch.cuda.device(xr.device):
         cuda_stream = torch.cuda.current_stream(xr.device).cuda_stream
@@ -1014,10 +1127,12 @@ def window_sweep(
         else:
             seg = list(prog.seg_sizes) + [1] * (5 - len(prog.seg_sizes))
             err = _lib().rq_window_sweep(
-                xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
-                mats.data_ptr(), prog.h, prog.nsteps, prog.bt, prog.in_mask,
-                prog.out_mask, int(prog.scratch), prog.aux_bytes, *seg,
-                srows // prog.bt, cuda_stream,
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                iprog.data_ptr(), fprog.data_ptr(), bstream.data_ptr(), prog.h,
+                prog.nsteps, prog.bt, prog.group, prog.in_mask, prog.out_mask,
+                int(prog.scratch), prog.nstage, prog.stage_bytes, prog.chunk_tab,
+                prog.nchunks, *seg,
+                srows // (prog.bt * prog.group), cuda_stream,
             )
     if err:
         raise RuntimeError(f"window_sweep kernel launch failed: CUDA error {err}")
@@ -1026,7 +1141,7 @@ def window_sweep(
         LAUNCHES["window_stream"] += 1
     for k in prog.kinds:
         KIND_LAUNCHES[k] += 1
-    return xr, xi
+    return yr, yi
 
 
 #: One-"low"-step programs of ``c64_low_matmul``, by (rows, matrix bytes):
@@ -1054,11 +1169,12 @@ def c64_low_matmul(xr, xi, B: np.ndarray, kernel: bool = True):
     (as ``pallas_kernels.c64_low_matmul`` takes its kernel on the TPU),
     plain matmuls otherwise or when ``kernel`` is false. Like the JAX
     function it leaves its inputs alone (callers such as a wide controlled
-    op read them again), so the in-place kernel runs on copies."""
+    op read them again): the kernel reads them and writes fresh planes."""
     if kernel and xr.is_cuda and xr.dtype == torch.float32 and xr.shape[1] == _C:
         prog = _low_program(xr.shape[0], B)
-        return window_sweep(prog.n, xr.clone(), xi.clone(), prog.seg_sizes,
-                            [("low", B)], prog=prog)
+        out = (torch.empty_like(xr), torch.empty_like(xi))
+        return window_sweep(prog.n, xr.contiguous(), xi.contiguous(), prog.seg_sizes,
+                            [("low", B)], prog=prog, out=out)
     bt = np.ascontiguousarray(np.asarray(B).T)
     br = torch.as_tensor(np.real(bt), dtype=xr.dtype, device=xr.device)
     bi = torch.as_tensor(np.imag(bt), dtype=xr.dtype, device=xr.device)

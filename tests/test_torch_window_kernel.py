@@ -199,9 +199,11 @@ def test_diag_factor_and_angle_modes_agree(name, monkeypatch):
 
 
 def test_matrix_operands_reach_the_kernel_as_b():
-    """The kernel reads each operand as B (row c = output lane c), complex
-    ones as (re, im, re + im) in float32; the rmix record lists the step's
-    distinct operands once each, with a complex flag."""
+    """The plain version reads each operand as B (row c = output lane c),
+    complex ones as (re, im, re + im) in float32; the rmix record lists the
+    step's distinct operands once each, with a complex flag; the kernel's
+    B stream holds 8 chunks per distinct operand (TF32 hi and lo of re,
+    then of im for a complex one) in that order."""
     B = rand_u(7, 12)
     prog = wk.encode_window(N, (1 << (N - 7),), [("low", B)])
     np.testing.assert_array_equal(prog.mats[0], B.real.astype(np.float32))
@@ -214,8 +216,18 @@ def test_matrix_operands_reach_the_kernel_as_b():
     rec = prog.iprog[:8]
     mlist = prog.iprog[rec[3] : rec[3] + 2 * rec[4]].reshape(-1, 2).tolist()
     assert mlist == [[0, 1], [3, 0], [4, 1]] and rec[5] == 1
-    # two staged chunks of 16 k x 128 lanes: (re, im, re + im) x (hi, lo)
-    assert prog.aux_bytes == 2 * 6 * 128 * 16 * 4
+    # chunks of 16 k x 128 lanes: (re, im) x (hi, lo) for a complex
+    # operand, (hi, lo) of re for a real one, staged whole
+    tab = prog.iprog[prog.chunk_tab : prog.chunk_tab + 2 * prog.nchunks].reshape(-1, 2)
+    assert prog.nchunks == 24
+    assert tab[:, 1].tolist() == [4 * 4 * 2048] * 8 + [2 * 4 * 2048] * 8 + [4 * 4 * 2048] * 8
+    assert tab[:, 0].tolist() == (np.cumsum(tab[:, 1]) - tab[:, 1]).__floordiv__(16).tolist()
+    want = np.concatenate([
+        wk.b_chunks(prog.mats[i], prog.mats[i + 1] if c else None).reshape(-1)
+        for i, c in mlist
+    ])
+    np.testing.assert_array_equal(prog.bstream, want)
+    assert prog.stage_bytes == 4 * 4 * 2048 and prog.nstage >= 2
     assert prog.smem_bytes <= 232448
 
 
