@@ -62,6 +62,7 @@ from rustqip_tpu_torch.types import (
     PiRational,
     canonical_complex_dtype,
 )
+from rustqip_tpu_torch.utils.observe import span
 
 
 class MeasurementHandle:
@@ -409,17 +410,20 @@ class LocalBuilder(
 
     # -- execution ------------------------------------------------------------
     def compile(self):
-        """Lower + fuse + plan the current pipeline (cached)."""
-        entries: List[PipelineEntry] = []
-        for item in self.pipeline:
-            entries.extend(_lower_item(item))
-        kwargs = {}
-        if self._max_fused_qubits is not None:
-            kwargs["max_fused_qubits"] = self._max_fused_qubits
-        return compile_pipeline(
-            self._n, entries, self.dtype, self._fuse, device=self.device,
-            kernel_ok=self._kernel_ok, check_norm=self._check_norm, **kwargs,
-        )
+        """Lower + fuse + plan the current pipeline (cached), in the span
+        ``rq.compile``."""
+        with span("rq.compile"):
+            with span("rq.compile.lower"):
+                entries: List[PipelineEntry] = []
+                for item in self.pipeline:
+                    entries.extend(_lower_item(item))
+            kwargs = {}
+            if self._max_fused_qubits is not None:
+                kwargs["max_fused_qubits"] = self._max_fused_qubits
+            return compile_pipeline(
+                self._n, entries, self.dtype, self._fuse, device=self.device,
+                kernel_ok=self._kernel_ok, check_norm=self._check_norm, **kwargs,
+            )
 
     def initial_index(
         self, it: Iterable[Tuple[Register, int]] = ()

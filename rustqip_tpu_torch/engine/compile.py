@@ -41,6 +41,7 @@ from rustqip_tpu_torch.ops.measurement_ops import (
     sample_outcome,
 )
 from rustqip_tpu_torch.types import TORCH_REAL, real_dtype_of
+from rustqip_tpu_torch.utils.observe import span
 
 
 @dataclass(frozen=True)
@@ -141,8 +142,10 @@ class CompiledCircuit:
         #: Kernel admission: the Hopper rules for a CUDA state, the
         #: reference's elsewhere. Fusion and planning read the same object.
         self.admission = for_device(self.device)
-        self.segments = self._plan(fuse, max_fused_qubits)
-        self.sweeps = [self._compile_segment(s) for s in self.segments]
+        with span("rq.compile.fuse"):
+            self.segments = self._plan(fuse, max_fused_qubits)
+        with span("rq.compile.sweeps"):
+            self.sweeps = [self._compile_segment(s) for s in self.segments]
 
     def _kernel_policy(self) -> bool:
         """Whether unitary runs may take the window kernel when the caller
@@ -316,46 +319,54 @@ class CompiledCircuit:
         of 2^n complex amplitudes (16 * 2^n bytes in complex128: 4 GiB at
         n = 28, 64 GiB at n = 32), moved to the device whole: it serves
         the smaller sizes."""
-        if generator is None:
-            generator = torch.Generator()
-            generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
-        fmask, fvals, fpmask, fprobs = self._forced_arrays(
-            forced or {}, self.num_measurements
-        )
-        _, R, C = _geometry(self.n)
-        if initial_state is not None:
-            arr = np.asarray(initial_state).reshape(R, C)
-            td = TORCH_REAL[self.rdtype]
-            # copies: the run updates its planes in place
-            re = torch.tensor(np.ascontiguousarray(arr.real), dtype=td, device=self.device)
-            im = torch.tensor(np.ascontiguousarray(arr.imag), dtype=td, device=self.device)
-        else:
-            re, im = self._one_hot(initial_index)
-        results: List = []
-        m_i = 0
-        for s_i, seg in enumerate(self.sweeps):
-            if isinstance(seg, MeasureEntry):
-                probs = measure_probs_ri(self.n, seg.indices, re, im)
-                if seg.stochastic:
-                    results.append(probs)
+        with span("rq.run"):
+            if generator is None:
+                generator = torch.Generator()
+                generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+            fmask, fvals, fpmask, fprobs = self._forced_arrays(
+                forced or {}, self.num_measurements
+            )
+            _, R, C = _geometry(self.n)
+            with span("rq.run.input"):
+                if initial_state is not None:
+                    arr = np.asarray(initial_state).reshape(R, C)
+                    td = TORCH_REAL[self.rdtype]
+                    # copies: the run updates its planes in place
+                    re = torch.tensor(np.ascontiguousarray(arr.real), dtype=td,
+                                      device=self.device)
+                    im = torch.tensor(np.ascontiguousarray(arr.imag), dtype=td,
+                                      device=self.device)
                 else:
-                    outcome = sample_outcome(probs, generator)
-                    if fmask[m_i]:
-                        outcome = int(fvals[m_i])
-                    prob = float(probs[outcome])
-                    if fpmask[m_i]:
-                        prob = float(np.asarray(fprobs[m_i], dtype=self.rdtype))
-                    re, im = _collapse_(self.n, seg.indices, (outcome, prob), [re, im])
-                    results.append((outcome, prob))
-                m_i += 1
-            elif isinstance(seg, tuple):
-                for _ in range(seg[1]):
-                    re, im = run_sweeps(self.n, seg[2], re, im, inplace=True)
-            else:
-                re, im = run_sweeps(self.n, seg, re, im, inplace=True)
-            if self._check_norm:
-                _norm_check_cb(measure_probs_ri(self.n, (), re, im)[0], s_i, self._norm_tol)
-        return re, im, tuple(results)
+                    re, im = self._one_hot(initial_index)
+            results: List = []
+            m_i = 0
+            for s_i, seg in enumerate(self.sweeps):
+                if isinstance(seg, MeasureEntry):
+                    with span("rq.measure.probs"):
+                        probs = measure_probs_ri(self.n, seg.indices, re, im)
+                    if seg.stochastic:
+                        results.append(probs)
+                    else:
+                        with span("rq.measure.draw"):
+                            outcome = sample_outcome(probs, generator)
+                            if fmask[m_i]:
+                                outcome = int(fvals[m_i])
+                            prob = float(probs[outcome])
+                            if fpmask[m_i]:
+                                prob = float(np.asarray(fprobs[m_i], dtype=self.rdtype))
+                        with span("rq.measure.collapse"):
+                            re, im = _collapse_(self.n, seg.indices, (outcome, prob), [re, im])
+                        results.append((outcome, prob))
+                    m_i += 1
+                elif isinstance(seg, tuple):
+                    for _ in range(seg[1]):
+                        re, im = run_sweeps(self.n, seg[2], re, im, inplace=True)
+                else:
+                    re, im = run_sweeps(self.n, seg, re, im, inplace=True)
+                if self._check_norm:
+                    _norm_check_cb(measure_probs_ri(self.n, (), re, im)[0], s_i,
+                                   self._norm_tol)
+            return re, im, tuple(results)
 
     def run_complex(
         self,
@@ -391,19 +402,20 @@ def compile_pipeline(
     check_norm: bool = False,
 ) -> CompiledCircuit:
     """Compile (with caching) a lowered pipeline into a CompiledCircuit."""
-    dtype = np.dtype(dtype)
-    dev = torch.device(device)
-    fp = (
-        n,
-        dtype.str,
-        fuse,
-        max_fused_qubits,
-        str(dev),
-        kernel_ok,
-        bool(check_norm),
-        tuple(e.fingerprint() for e in entries),
-    )
-    cached = _CACHE.get(fp)
+    with span("rq.compile.lower"):
+        dtype = np.dtype(dtype)
+        dev = torch.device(device)
+        fp = (
+            n,
+            dtype.str,
+            fuse,
+            max_fused_qubits,
+            str(dev),
+            kernel_ok,
+            bool(check_norm),
+            tuple(e.fingerprint() for e in entries),
+        )
+        cached = _CACHE.get(fp)
     if cached is None:
         cached = CompiledCircuit(
             n, entries, dtype, fuse, max_fused_qubits, dev, kernel_ok,

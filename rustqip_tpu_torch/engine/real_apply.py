@@ -55,6 +55,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     expand_op_matrix,
     op_to_dense,
 )
+from rustqip_tpu_torch.utils.observe import COUNTS, span, swap_bytes
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -195,36 +196,49 @@ def apply_op_ri(
     ``inplace`` says that the caller owns the planes: a swap's cross pairs
     and a reflection then update them in place, in bounded scratch;
     otherwise they work on copies (the row-swap kernel updates its planes
-    in place either way)."""
+    in place either way).
+
+    Each op runs in the span ``rq.op.<kind>`` (``observe.span``; a
+    controlled op's inner op in its own, inside ``rq.op.control``), and a
+    swap adds the bytes its permutation moves to
+    ``observe.COUNTS["swap_bytes"]``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     if isinstance(op, PhaseProductOp):
-        return _phase_mul_ri(n, op, re, im)
+        with span("rq.op.phase"):
+            return _phase_mul_ri(n, op, re, im)
     if isinstance(op, DenseOp):
-        return _dense_ri(n, op.indices, op.data, re, im, low_kernel)
+        with span("rq.op.dense"):
+            return _dense_ri(n, op.indices, op.data, re, im, low_kernel)
     if isinstance(op, SparseOp):
-        if op.num_indices > DENSE_CAP:
-            return _sparse_apply_planes(n, op, re, im)
-        return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
+        with span("rq.op.sparse"):
+            if op.num_indices > DENSE_CAP:
+                return _sparse_apply_planes(n, op, re, im)
+            return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     if isinstance(op, SwapOp):
-        cross, rowp, colp, mixed = _swap_schedule(n, op)
-        if cross:
-            re, im = _cross_swap_planes(n, cross, [re, im], inplace)
-        if rowp:
-            swap = row_swap.row_swap if swap_kernel else row_swap.row_swap_reference
-            re, im = swap(n, rowp, re, im)
-        if colp:
-            re, im = _col_swap_planes(n, colp, [re, im])
-        for a, b in mixed:
-            re, im = _dense_ri(n, (a, b), _SWAP2, re, im, low_kernel)
-        return re, im
+        COUNTS["swap_bytes"] += swap_bytes(n, op, re.element_size())
+        with span("rq.op.swap"):
+            cross, rowp, colp, mixed = _swap_schedule(n, op)
+            if cross:
+                re, im = _cross_swap_planes(n, cross, [re, im], inplace)
+            if rowp:
+                swap = row_swap.row_swap if swap_kernel else row_swap.row_swap_reference
+                re, im = swap(n, rowp, re, im)
+            if colp:
+                re, im = _col_swap_planes(n, colp, [re, im])
+            for a, b in mixed:
+                re, im = _dense_ri(n, (a, b), _SWAP2, re, im, low_kernel)
+            return re, im
     if isinstance(op, ControlOp):
-        return _control_ri(n, op, re, im, low_kernel, swap_kernel)
+        with span("rq.op.control"):
+            return _control_ri(n, op, re, im, low_kernel, swap_kernel)
     if isinstance(op, FnOp):
-        return _fn_apply_planes(n, op, re, im)
+        with span("rq.op.fn"):
+            return _fn_apply_planes(n, op, re, im)
     if isinstance(op, ReflectionOp):
-        return (_apply_reflection_2d(n, op, re, inplace),
-                _apply_reflection_2d(n, op, im, inplace))
+        with span("rq.op.reflection"):
+            return (_apply_reflection_2d(n, op, re, inplace),
+                    _apply_reflection_2d(n, op, im, inplace))
     raise TypeError(f"Unknown op {op!r}")
 
 
@@ -789,17 +803,21 @@ def run_sweeps(
     launches no window kernel at all (the sharded GSPMD counterpart);
     ``swap_kernel=False`` keeps the row-swap and copy kernels off too, so
     such a plan launches no kernel at all (the plain path). ``inplace``
-    (the caller owns the planes) goes to ``apply_op_ri``."""
+    (the caller owns the planes) goes to ``apply_op_ri``. A kernel window
+    runs in the span ``rq.sweep.kernel``, a plain one in
+    ``rq.sweep.window``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
         if kind == "kwindow":
             seg, ksteps, prog = payload
-            re, im = window_kernel.window_sweep(
-                n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog
-            )
+            with span("rq.sweep.kernel"):
+                re, im = window_kernel.window_sweep(
+                    n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog
+                )
         elif kind == "window":
-            re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
+            with span("rq.sweep.window"):
+                re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
         else:
             re, im = apply_op_ri(n, payload, re, im, low_kernel, swap_kernel, inplace)
     return re, im

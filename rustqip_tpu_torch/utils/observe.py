@@ -16,6 +16,14 @@ functions that read a plan take a builder, as the JAX package's do, or a
 Kernel sweeps and the row-swap pass update the planes in place, and the
 profilers run sweeps repeatedly on the same planes: the state they leave is
 for timing, not for results.
+
+The program's spans (``span``, named ``rq.<stage>``) mark its stages in a
+``torch.profiler`` trace, on the profiler's clock beside the device's
+kernels: ``rq.compile`` (``.lower``, ``.fuse``, ``.sweeps``), ``rq.run``
+(``.input``), ``rq.sweep.kernel`` / ``rq.sweep.window`` per window,
+``rq.op.<kind>`` per single-op pass and ``rq.measure.probs`` / ``.draw`` /
+``.collapse``. With no profiler active they cost one flag check. Its
+counts (``COUNTS``) are kept whether or not a profiler runs.
 """
 
 from __future__ import annotations
@@ -24,18 +32,42 @@ import contextlib
 import json
 import os
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-from rustqip_tpu_torch.builder.circuit_objects import (
-    MeasurementObject,
-    flatten_pipeline,
-)
 from rustqip_tpu_torch.engine.apply import _geometry
 from rustqip_tpu_torch.types import TORCH_REAL
+
+#: The program's counts, kept whether or not a profiler runs (a reader
+#: takes their difference over its window): ``swap_bytes``, the bytes that
+#: the permutations of the ``SwapOp`` passes run so far must move
+#: (``swap_bytes``), whatever carries them out.
+COUNTS: Counter = Counter()
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``name`` in the active ``torch.profiler`` trace, for
+    the host work inside it and the device work it launches; with no
+    profiler active, one shared null context (a flag check: no allocation,
+    no dispatcher call)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def swap_bytes(n: int, op, itemsize: int) -> int:
+    """Bytes that the permutation of ``op`` (a ``SwapOp`` of k disjoint
+    qubit pairs) must move on the (re, im) planes of a 2^n state: the
+    2^n - 2^(n-k) amplitudes whose index changes, each read once and
+    written once on both planes."""
+    return ((1 << n) - (1 << (n - op.half))) * 2 * itemsize * 2
 
 
 @dataclass
@@ -69,6 +101,11 @@ class CircuitStats:
 
 def circuit_stats(builder, compiled: bool = True) -> CircuitStats:
     """Gate-count / sweep / byte statistics for a builder's circuit."""
+    from rustqip_tpu_torch.builder.circuit_objects import (
+        MeasurementObject,
+        flatten_pipeline,
+    )
+
     flat = flatten_pipeline(builder.pipeline)
     counts: Dict[str, int] = {}
     measurements = 0

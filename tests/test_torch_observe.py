@@ -188,3 +188,86 @@ def test_trace_summary_counts_the_union_of_device_intervals(tmp_path):
     assert s["kernel_events"] == 2 and s["device_events"] == 3
     assert s["busy_ms"] == pytest.approx(0.05) and s["window_ms"] == pytest.approx(0.1)
     assert s["busy_share"] == pytest.approx(0.5)
+
+
+def test_span_without_a_profiler_is_the_shared_null_context():
+    a, b = PO.span("rq.run"), PO.span("rq.op.swap")
+    assert a is b
+    with a as entered:
+        assert entered is None
+    with torch.autograd.profiler.profile(use_kineto=False):
+        assert PO.span("rq.run") is not a
+
+
+def _qpe_plan_spans(cc):
+    """The spans a run of ``cc`` opens per sweep and measurement, in plan
+    order."""
+    kinds = {"PhaseProductOp": "phase", "DenseOp": "dense", "SparseOp": "sparse",
+             "SwapOp": "swap", "ControlOp": "control", "FnOp": "fn",
+             "ReflectionOp": "reflection"}
+    out = []
+    for seg in cc.sweeps:
+        if isinstance(seg, list):
+            out += [{"kwindow": "rq.sweep.kernel", "window": "rq.sweep.window"}.get(
+                kind, f"rq.op.{kinds.get(type(p).__name__)}") for kind, p, _ in seg]
+        else:
+            out += ["rq.measure.probs", "rq.measure.draw", "rq.measure.collapse"]
+    return out
+
+
+def test_spans_of_a_qpe_compile_and_run(monkeypatch):
+    """A QPE-8 compiled and run under the profiler on the CPU records the
+    compile's stages inside ``rq.compile`` and each sweep's, op's and
+    measurement's span inside ``rq.run``, in plan order. (The profiler
+    without kineto: kineto's first start takes seconds here.)"""
+    from rustqip_tpu_torch.algos import phase_estimate
+    from rustqip_tpu_torch.engine import compile as port_compile
+
+    monkeypatch.setattr(port_compile, "_CACHE", {})  # a compile that plans
+    b = PB(dtype="f32", device="cpu")
+    u = np.diag([1.0, np.exp(2j * np.pi * 5 / 2**7)])
+    phase_estimate(b, u, 7, prepare=lambda bb, t: bb.x(t))
+    with torch.autograd.profiler.profile(use_kineto=False) as prof:
+        cc = b.compile()
+        cc.run(0, generator=torch.Generator().manual_seed(1))
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.function_events if e.name.startswith("rq."))
+
+    def inside(outer):
+        (a, b), = [(a, b) for a, b, name in spans if name == outer]
+        return [name for s, e, name in spans if a <= s and e <= b and name != outer]
+
+    assert inside("rq.compile") == ["rq.compile.lower", "rq.compile.lower",
+                                    "rq.compile.fuse", "rq.compile.sweeps"]
+    run = inside("rq.run")
+    assert run[0] == "rq.run.input"
+    assert run[1:] == _qpe_plan_spans(cc)
+    assert {"rq.op.phase", "rq.op.swap", "rq.measure.probs", "rq.measure.draw",
+            "rq.measure.collapse"} <= set(run)
+
+
+def test_swap_bytes_count_the_amplitudes_each_swap_moves():
+    """``COUNTS["swap_bytes"]`` over a run of swaps is 16 bytes (both float32
+    planes, read and written) per amplitude whose index each swap's
+    permutation changes, counted by brute force over every index for
+    seeded random disjoint pair sets at n = 10; the swaps' states are that
+    permutation's."""
+    from rustqip_tpu_torch.engine.real_apply import apply_op_ri
+    from rustqip_tpu_torch.ops.matrix_ops import SwapOp
+
+    n, rng = 10, np.random.default_rng(3)
+    idx = np.arange(1 << n)
+    re, im = (torch.tensor(rng.standard_normal((8, 128)), dtype=torch.float32)
+              for _ in range(2))
+    before, moved = PO.COUNTS["swap_bytes"], 0
+    for k in (1, 2, 3, 5):
+        qs = rng.permutation(n)[:2 * k]
+        perm = idx.copy()
+        for a, b in zip(qs[:k], qs[k:]):  # qubit q is bit n - 1 - q
+            ba, bb = (idx >> (n - 1 - a)) & 1, (idx >> (n - 1 - b)) & 1
+            perm ^= (ba ^ bb) << (n - 1 - a) | (ba ^ bb) << (n - 1 - b)
+        moved += int((perm != idx).sum())
+        want = (re.reshape(-1)[perm].clone(), im.reshape(-1)[perm].clone())
+        re, im = apply_op_ri(n, SwapOp(tuple(int(q) for q in qs)), re, im)
+        assert torch.equal(re.reshape(-1), want[0]) and torch.equal(im.reshape(-1), want[1])
+    assert PO.COUNTS["swap_bytes"] - before == moved * 2 * 4 * 2
