@@ -9,8 +9,8 @@ a checkout: builds the four Hopper kernel sources from
 ``window_stream.cu`` and ``window_sweep.cu``, then ``row_swap.cu`` and
 ``plane_copy.cu``; one nvcc each, all started together), holds each against
 its plain PyTorch version (the window kernel on the parity windows, a
-register-path window on both paths; the row swap on five pair sets,
-exactly). On the clean allocator
+register-path window on both paths; the row swap on five pair sets and
+the cross kernel on five cross sets, exactly). On the clean allocator
 ``phase_capacity`` then runs the main path at n = 32 (2 x 16 GiB of
 float32 planes, the largest state one H100 holds): the JAX package's
 single-chip capacity circuit, QFT-32 of the basis state with all bits set
@@ -49,7 +49,8 @@ Then it times each kernel window of QFT-28 and Grover-28 alone
 (``window_breakdown``; a register-path window also on the tile path, in
 turns), one window per redesigned step kind and the element-wise h = 4
 windows alone (``step_breakdown``), the swap pass of QFT-28, QPE-28 and Shor-28 by part
-(``swap_breakdown``), every sweep of QPE-28 and Shor-28
+(``swap_breakdown``: with cross pairs, the whole op as one launch against
+the plain pair of passes it replaces), every sweep of QPE-28 and Shor-28
 (``circuit_breakdown``) and the copy floor (``copy_floor``), each beside its
 bound: the larger of the bytes it must move at 3.35 TB/s and its 3xTF32
 tensor-core flops at 495 TFLOP/s, and, where there is one, the one PyTorch
@@ -155,14 +156,16 @@ def window_bound(prog, n: int):
 
 
 def kernel_modules():
-    """{kernel source name: the module whose wrapper counts its launches}.
+    """{kernel name: the module whose wrapper counts its launches}.
     ``window_sweep`` counts every launch of the window kernel,
-    ``window_stream`` the launches of its register-streaming path."""
+    ``window_stream`` the launches of its register-streaming path;
+    ``row_swap`` the row-pair kernel and ``row_swap_cross`` the cross kernel
+    of ``row_swap.cu``. Every name but ``row_swap_cross`` is also a source."""
     from rustqip_tpu_torch.engine import copy_probe, row_swap
     from rustqip_tpu_torch.engine import window_kernel as wk
 
     return {"window_sweep": wk, "window_stream": wk, "row_swap": row_swap,
-            "plane_copy": copy_probe}
+            "row_swap_cross": row_swap, "plane_copy": copy_probe}
 
 
 def tile_twin(prog):
@@ -221,7 +224,7 @@ def phase_build():
     if cuda_build.BUILD_DIR.exists():
         shutil.rmtree(cuda_build.BUILD_DIR)
     t0 = time.perf_counter()
-    names = list(kernel_modules())
+    names = [k for k in kernel_modules() if (cuda_build.CSRC / f"{k}.cu").exists()]
     per = cuda_build.build(*names)
     for name in names:
         cuda_build.load(name)
@@ -329,10 +332,15 @@ def rows_moved(n: int, pairs) -> int:
 def phase_swap_parity():
     """The row-swap kernel against its plain version at n = 20 on the pair
     sets of ``row_swap.parity_pair_sets`` in float32, and one float64
-    case: a permutation computes nothing, so they must be equal."""
+    case; the cross kernel against the plain cross and row passes on the
+    sets of ``row_swap.cross_pair_sets``, in float32 and float64, in place
+    and to fresh planes: a permutation computes nothing, so they must be
+    equal."""
     import torch
 
     from rustqip_tpu_torch.engine import row_swap
+    from rustqip_tpu_torch.engine.apply import _swap_schedule
+    from rustqip_tpu_torch.ops.matrix_ops import make_swap_op
 
     n = N_PARITY
     sets = [(name, pairs, torch.float32) for name, pairs in row_swap.parity_pair_sets(n)]
@@ -347,6 +355,20 @@ def phase_swap_parity():
             raise AssertionError(f"row_swap {name}: kernel differs from the plain version")
         rows.append({"set": name, "pairs": pairs, "dtype": str(dtype).split(".")[-1],
                      "rows_moved": rows_moved(n, pairs), "equal": True})
+    for name, pairs in row_swap.cross_pair_sets(n):
+        cross, rowp, _, _ = _swap_schedule(n, make_swap_op(*zip(*pairs)))
+        for dtype in (torch.float32, torch.float64):
+            xr, xi = (x.to(dtype) for x in seeded_state(n, 4, "cuda"))
+            want = row_swap.cross_row_swap_reference(n, cross, rowp, xr, xi)
+            for inplace in (True, False):
+                keep = (xr.clone(), xi.clone())
+                got = row_swap.cross_row_swap(n, cross, rowp, *keep, inplace=inplace)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"cross_row_swap {name} {dtype} inplace={inplace}: "
+                                         "kernel differs from the plain passes")
+            rows.append({"set": name, "cross_pairs": cross, "row_pairs": rowp,
+                         "dtype": str(dtype).split(".")[-1], "equal": True})
     emit({"phase": "swap_kernel_vs_plain", "n": n, "sets": rows})
     return 0.0
 
@@ -417,6 +439,7 @@ def phase_capacity():
     from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.compile import MeasureEntry
     from rustqip_tpu_torch.prelude import LocalBuilder
+    from rustqip_tpu_torch.utils import observe
 
     n = N_CAP
     t0 = time.perf_counter()
@@ -483,6 +506,7 @@ def phase_capacity():
         gen.manual_seed(7)
         torch.cuda.synchronize()
         reset_launches()
+        cross_plain = observe.COUNTS["swap_cross_plain"]
         torch.cuda.reset_peak_memory_stats()
         re, im, res = cc.run(init, generator=gen)
         torch.cuda.synchronize()
@@ -491,9 +515,12 @@ def phase_capacity():
         kinds = dict(wk.KIND_LAUNCHES)
         err, extra = check(re, im, res)
         del re, im, res
-        if launches["window_sweep"] <= 0 or (name.startswith("qft") and launches["row_swap"] <= 0) \
+        if launches["window_sweep"] <= 0 \
+                or (name.startswith("qft") and launches["row_swap_cross"] != 1) \
                 or (name != "grover32_iteration_native" and launches["window_stream"] <= 0):
             raise AssertionError(f"{name}: the capacity path launched {launches}")
+        if observe.COUNTS["swap_cross_plain"] != cross_plain:
+            raise AssertionError(f"{name}: a swap's cross pairs ran as plain passes")
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: cc.run(init, generator=gen))
         timed_peak = torch.cuda.max_memory_allocated() / gib
@@ -523,8 +550,11 @@ def capacity_breakdown(name, cc, init, pass_ms, parts):
     ``window_bound``, a plain sweep a read and a write of both planes);
     the one-hot start; for QFT-32 the row pairs (``row_swap``) and the
     cross pairs of its swap pass alone; for the capacity circuit one
-    probability pass and one collapse. Adds QFT-32's window and row-swap
-    times and bounds to ``parts`` for the ``kernels`` line."""
+    probability pass and one collapse. For QFT-32 the whole swap pass as
+    one launch of the cross kernel beside the plain pair of passes it
+    replaces (the plain cross pass, then the row-swap kernel). Adds
+    QFT-32's window, row-swap and swap-pass times and bounds to ``parts``
+    for the ``kernels`` line."""
     import torch
 
     from rustqip_tpu_torch.engine import row_swap
@@ -557,6 +587,11 @@ def capacity_breakdown(name, cc, init, pass_ms, parts):
                                                 / HBM_BYTES_PER_S * 1e3)
                     row["cross_pairs_ms"] = cuda_ms(
                         lambda: _cross_swap_planes(n, cross, [re, im], inplace=True))
+                    row["plain_pair_ms"] = row["row_swap_ms"] + row["cross_pairs_ms"]
+                    row["swap_pass_ms"] = cuda_ms(
+                        lambda: row_swap.cross_row_swap(n, cross, rowp, re, im, inplace=True))
+                    row["swap_pass_bound_ms"] = (observe.swap_bytes(n, op, 4)
+                                                 / HBM_BYTES_PER_S * 1e3)
         elif isinstance(seg, MeasureEntry) and not seg.stochastic:
             row["probs_ms"] = cuda_ms(lambda: measure_probs_ri(n, seg.indices, re, im))
             row["collapse_ms"] = cuda_ms(lambda: _collapse_(n, seg.indices, (0, 1.0), [re, im]))
@@ -564,7 +599,8 @@ def capacity_breakdown(name, cc, init, pass_ms, parts):
     emit(row)
     if name.startswith("qft"):
         parts.update({k: row[k] for k in ("kernel_windows_ms", "kernel_windows_bound_ms",
-                                          "row_swap_ms", "row_swap_bound_ms")})
+                                          "row_swap_ms", "row_swap_bound_ms", "swap_pass_ms",
+                                          "swap_pass_bound_ms", "plain_pair_ms")})
 
 
 def _builder(kernel: bool):
@@ -591,6 +627,7 @@ def run_circuit(name, make, check):
     import torch
 
     from rustqip_tpu_torch.engine import window_kernel as wk
+    from rustqip_tpu_torch.utils import observe
 
     out = {}
     for label, kernel in (("kernel", True), ("plain", False)):
@@ -601,11 +638,13 @@ def run_circuit(name, make, check):
         torch.cuda.synchronize()
         if kernel:
             reset_launches()
+            cross_plain = observe.COUNTS["swap_cross_plain"]
         re, im, res = cc.run(init, generator=gen)
         torch.cuda.synchronize()
         if kernel:
             launches = read_launches()
             kinds = dict(wk.KIND_LAUNCHES)
+            cross_plain = observe.COUNTS["swap_cross_plain"] - cross_plain
         check(re, im, res, handles)
         # the plain path was just run once: time one more run of it
         ms = cuda_ms(lambda: cc.run(init, generator=gen),
@@ -621,6 +660,7 @@ def run_circuit(name, make, check):
            "sweeps": sum(counts.values()), "kwindow_sweeps": counts["kwindow"],
            "plain_plan_sweeps": sum(pcc.sweep_counts().values()),
            "kernel_launches": launches, "kind_launches": kinds,
+           "swap_cross_plain": cross_plain,
            "kernel_path_ms": kms, "plain_path_ms": pms,
            "kernel_vs_plain_max_abs_diff": diff}
     del out
@@ -814,7 +854,10 @@ def phase_main():
         ("adder28_basis", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(adder(False))),
         ("adder28_hadamard", *(lambda bc: (builder_circuit(bc[0]), bc[1]))(adder(True))),
     ]
-    must_launch = {"row_swap": {"qft28", "qpe28", "shor28", "controlled_wide_swap28"},
+    # QFT-28's and QPE-28's swaps hold cross pairs: the cross kernel takes
+    # their row pairs too
+    must_launch = {"row_swap": {"shor28", "controlled_wide_swap28"},
+                   "row_swap_cross": {"qft28", "qpe28"},
                    "plane_copy": {"controlled_wide_swap28"},
                    "window_stream": {"qft28", "grover28_iteration_gate"}}
     ccs = {}
@@ -829,6 +872,8 @@ def phase_main():
         if launches["plane_copy"] != (name == "controlled_wide_swap28"):
             # only a controlled SwapOp with row pairs copies its input
             raise AssertionError(f"{name}: plane_copy launched {launches['plane_copy']} times")
+        if name in must_launch["row_swap_cross"] and row["swap_cross_plain"]:
+            raise AssertionError(f"{name}: a swap's cross pairs ran as plain passes")
         ccs[name] = cc
         total.update(launches)
         kind_launches.update(row["kind_launches"])
@@ -1298,8 +1343,8 @@ def phase_interchange():
         got, qasm_row = drive(icc, imp.builder.initial_index(per_qubit))
         closed = {}
         if name == "qft28":
-            if qasm_row["kernel_launches"]["row_swap"] <= 0:
-                raise AssertionError("QFT-28 from QASM: no row_swap kernel launched")
+            if qasm_row["kernel_launches"]["row_swap_cross"] <= 0:
+                raise AssertionError("QFT-28 from QASM: no cross row-swap kernel launched")
             x = b.initial_index(init)
             closed = {"input_index": x, "builder_err": qft_err(ref, x),
                       "qasm_err": qft_err(got, x)}
@@ -1837,7 +1882,8 @@ def phase_state_api():
     u = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))[0]
     lane = make_matrix_op([n - 2, n - 1], u.reshape(-1))
     lane_out, launches = counted(lambda: apply_op(n, lane, state))
-    if launches != {"window_sweep": 1, "window_stream": 0, "row_swap": 0, "plane_copy": 0}:
+    if launches != {"window_sweep": 1, "window_stream": 0, "row_swap": 0, "row_swap_cross": 0,
+                    "plane_copy": 0}:
         raise AssertionError(f"state API: lane apply_op launched {launches}")
     B = _dense_plan(n, lane.indices, _mat_key(lane.data))[1]
     re, im = _split(n, state, None)
@@ -1861,7 +1907,8 @@ def phase_state_api():
     pairs = [(q, n - 1 - q) for q in range(n // 2) if n - 1 - q < n - 7]  # QFT's row field
     swap = make_swap_op(*zip(*pairs))
     sw_out, launches = counted(lambda: apply_op(n, swap, state))
-    if launches != {"window_sweep": 0, "window_stream": 0, "row_swap": 1, "plane_copy": 0}:
+    if launches != {"window_sweep": 0, "window_stream": 0, "row_swap": 1, "row_swap_cross": 0,
+                    "plane_copy": 0}:
         raise AssertionError(f"state API: row-pair SwapOp launched {launches}")
     if not torch.equal(sw_out, _join(*row_swap_reference(n, pairs, *_split(n, state, None)))):
         raise AssertionError("state API: row-pair SwapOp differs from the plain permutation")
@@ -2342,17 +2389,25 @@ def _field(n_m, pairs):
 
 def phase_swap_breakdown(ccs):
     """The swap pass at the end of QFT-28, QPE-28 and Shor-28, by part, on
-    a seeded random state: the row-swap kernel (ms, bound by bytes), its
-    plain version (``_row_swap_planes``), the one ``reshape -> permute ->
-    contiguous`` that computes the same field reversal (the library call,
-    both planes stacked), the cross-pair part's plain passes, and the whole
-    ``SwapOp`` through ``apply_op_ri``. Kernel and plain are checked equal."""
+    a seeded random state: the row-swap kernel on the row pairs alone (ms,
+    bound by bytes), its plain version (``_row_swap_planes``), the one
+    ``reshape -> permute -> contiguous`` that computes the same field
+    reversal (the library call, both planes stacked), the cross-pair part's
+    plain passes, and the whole ``SwapOp`` through ``apply_op_ri``. Where
+    the op holds cross pairs, also the whole op as one launch of the cross
+    kernel in place (``cross_kernel_ms``, bound by the bytes its
+    permutation moves) beside the plain pair of passes it replaces, the
+    plain cross pass in place and then the row-swap kernel
+    (``plain_pair_ms``). Kernels and plain are checked equal. Returns the
+    row kernel's sums for the ``row_swap`` entry of the ``kernels`` line and
+    the cross kernel's for its own."""
     import torch
 
     from rustqip_tpu_torch.engine import row_swap
     from rustqip_tpu_torch.engine.apply import _cross_swap_planes, _swap_schedule
     from rustqip_tpu_torch.engine.real_apply import apply_op_ri
     from rustqip_tpu_torch.ops.matrix_ops import SwapOp
+    from rustqip_tpu_torch.utils import observe
 
     n = N_MAIN
     n_m = n - 7
@@ -2362,6 +2417,7 @@ def phase_swap_breakdown(ccs):
     x = torch.randn((2, R, C), generator=g, device="cuda")
     x /= x.norm()
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    cross_totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for name in ("qft28", "qpe28", "shor28"):
         swaps = [p for seg in ccs[name].sweeps if isinstance(seg, list)
                  for k, p, _ in seg if k == "op" and isinstance(p, SwapOp)]
@@ -2395,6 +2451,28 @@ def phase_swap_breakdown(ccs):
         del kr, ki
         buf = (x[0].clone(), x[1].clone())
         op_ms = cuda_ms(lambda: apply_op_ri(n, op, *buf))
+        whole = {}
+        if cross:
+            got = row_swap.cross_row_swap(n, cross, rowp, *buf, inplace=False)
+            want = row_swap.cross_row_swap_reference(n, cross, rowp, *buf)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{name}: cross kernel differs from the plain passes")
+            del got, want
+            cross_bytes = observe.swap_bytes(n, op, 4)
+            whole = {
+                "cross_kernel_ms": cuda_ms(
+                    lambda: row_swap.cross_row_swap(n, cross, rowp, *buf, inplace=True)),
+                "plain_pair_ms": cuda_ms(lambda: row_swap.row_swap(n, rowp, *_cross_swap_planes(
+                    n, cross, list(buf), inplace=True))),
+                "cross_kernel_bytes": cross_bytes,
+                "cross_kernel_bound_ms": cross_bytes / HBM_BYTES_PER_S * 1e3,
+            }
+            whole["cross_kernel_bound_share"] = (whole["cross_kernel_bound_ms"]
+                                                 / whole["cross_kernel_ms"])
+            for k, w in (("ms", "cross_kernel_ms"), ("plain_ms", "plain_pair_ms"),
+                         ("bound_ms", "cross_kernel_bound_ms")):
+                cross_totals[k] += whole[w]
         del buf
         torch.cuda.empty_cache()
         row = {"phase": "swap_breakdown", "circuit": name, "n": n,
@@ -2405,11 +2483,11 @@ def phase_swap_breakdown(ccs):
                "bound_by": "bytes", "bound_share": bound_ms / ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library_call": "reshape -> permute -> contiguous on (2, R, 128)",
-               "cross_plain_ms": cross_ms, "swap_op_ms": op_ms}
+               "cross_plain_ms": cross_ms, "swap_op_ms": op_ms, **whole}
         emit(row)
         for k in totals:
             totals[k] += row[k] or 0.0
-    return totals
+    return totals, cross_totals
 
 
 def phase_circuit_breakdown(ccs):
@@ -2580,7 +2658,7 @@ def main() -> int:
     kind_launches = dict(Counter(kind_launches) + ex_kinds)
     kms, pms, qft_err, bound, stream = phase_window_breakdown(ccs)
     step_err, mix_library, lane_matmul = phase_step_breakdown(ccs)
-    swap = phase_swap_breakdown(ccs)
+    swap, cross_swap = phase_swap_breakdown(ccs)
     phase_circuit_breakdown(ccs)
     copy = phase_copy_floor()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
@@ -2645,6 +2723,27 @@ def main() -> int:
             # QFT-32's nine row pairs at the card's capacity
             "capacity_n32": {"ms": cap_parts["row_swap_ms"],
                              "bound_ms": cap_parts["row_swap_bound_ms"]},
+        },
+        {
+            # ms, plain_ms, bound_ms: the whole swap passes of QFT-28 and
+            # QPE-28 as one launch each, in place, beside the plain pair of
+            # passes they replace (the plain cross pass, then row_swap),
+            # summed; no TPU kernel: the JAX package leaves cross pairs to XLA
+            "name": "row_swap_cross",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/row_swap.cu",
+            "replaces": None,
+            "launches": launches["row_swap_cross"],
+            "max_abs_err": swap_err,
+            "ms": cross_swap["ms"],
+            "plain_ms": cross_swap["plain_ms"],
+            "bound_ms": cross_swap["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            # QFT-32's whole swap pass at the card's capacity
+            "capacity_n32": {"ms": cap_parts["swap_pass_ms"],
+                             "plain_ms": cap_parts["plain_pair_ms"],
+                             "bound_ms": cap_parts["swap_pass_bound_ms"]},
         },
         {
             # ms: a fresh copy with one strip per thread

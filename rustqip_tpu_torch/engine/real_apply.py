@@ -32,7 +32,6 @@ from rustqip_tpu_torch.engine.apply import (
     _col_swap_planes,
     _const,
     _control_mask_2d,
-    _cross_swap_planes,
     _dense_plan,
     _fn_apply_planes,
     _geometry,
@@ -163,12 +162,14 @@ def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True, swap_kernel=True
         return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     _, R, C = _geometry(n)
     # The select below reads the input again. Only an inner SwapOp whose row
-    # pairs run the row-swap kernel (CUDA) updates its planes in place, so
-    # only it gets copies; every other inner op returns fresh planes.
+    # pairs alone run the row-swap kernel (CUDA) updates its planes in place,
+    # so only it gets copies; every other inner op returns fresh planes (the
+    # cross kernel writes fresh planes for a caller that keeps its input).
     inner_in = (re, im)
-    if (isinstance(op.inner, SwapOp) and re.is_cuda and swap_kernel
-            and _swap_schedule(n, op.inner)[1]):
-        inner_in = copy_probe.plane_copy(re.contiguous(), im.contiguous())
+    if isinstance(op.inner, SwapOp) and re.is_cuda and swap_kernel:
+        cross, rowp, _, _ = _swap_schedule(n, op.inner)
+        if rowp and not cross:
+            inner_in = copy_probe.plane_copy(re.contiguous(), im.contiguous())
     in_r, in_i = apply_op_ri(n, op.inner, *inner_in, low_kernel=low_kernel,
                              swap_kernel=swap_kernel)
     mask = _control_mask_2d(n, op.control_indices, R, C, re.device)
@@ -191,12 +192,19 @@ def apply_op_ri(
     """Apply one gate op to the (R, C) (re, im) planes of a 2^n state.
     ``low_kernel=False`` keeps a dense op on the lane qubits off the window
     kernel (``c64_low_matmul``'s plain matmuls); ``swap_kernel=False``
-    keeps a swap's row pairs off the row-swap kernel
-    (``row_swap_reference``) and a controlled swap off ``plane_copy``.
+    keeps a swap off the row-swap kernels (``row_swap_reference``,
+    ``cross_row_swap_reference``) and a controlled swap off ``plane_copy``.
     ``inplace`` says that the caller owns the planes: a swap's cross pairs
     and a reflection then update them in place, in bounded scratch;
-    otherwise they work on copies (the row-swap kernel updates its planes
-    in place either way).
+    otherwise they write fresh planes (the row-swap kernel of a swap
+    without cross pairs updates its planes in place either way).
+
+    A swap with cross pairs on the top row qubits runs in one pass, cross
+    and row pairs together (``row_swap.cross_row_swap``); one with row
+    pairs alone in ``row_swap.row_swap``; column pairs as one lane relabel;
+    row-lane pairs that the cross pass does not take as dense 4 x 4
+    passes, counted in ``observe.COUNTS["swap_cross_plain"]`` where they
+    run on CUDA with the swap kernels on.
 
     Each op runs in the span ``rq.op.<kind>`` (``observe.span``; a
     controlled op's inner op in its own, inside ``rq.op.control``), and a
@@ -220,12 +228,16 @@ def apply_op_ri(
         with span("rq.op.swap"):
             cross, rowp, colp, mixed = _swap_schedule(n, op)
             if cross:
-                re, im = _cross_swap_planes(n, cross, [re, im], inplace)
-            if rowp:
+                swap = (row_swap.cross_row_swap if swap_kernel
+                        else row_swap.cross_row_swap_reference)
+                re, im = swap(n, cross, rowp, re, im, inplace)
+            elif rowp:
                 swap = row_swap.row_swap if swap_kernel else row_swap.row_swap_reference
                 re, im = swap(n, rowp, re, im)
             if colp:
                 re, im = _col_swap_planes(n, colp, [re, im])
+            if mixed and swap_kernel and re.is_cuda:
+                COUNTS["swap_cross_plain"] += 1
             for a, b in mixed:
                 re, im = _dense_ri(n, (a, b), _SWAP2, re, im, low_kernel)
             return re, im

@@ -1,33 +1,50 @@
-"""The row-swap pass: row-row swap pairs of a ``SwapOp`` on (R, 128) planes.
+"""The swap pass: a ``SwapOp``'s row pairs, and its cross pairs with them,
+on (R, 128) planes.
 
 ``row_swap`` applies a set of disjoint row-qubit swap pairs to both planes.
-On a CUDA tensor it launches the Hopper kernel of
+On a CUDA tensor it launches ``row_swap_kernel`` of
 ``rustqip_tpu_torch/csrc/row_swap.cu`` (in place, one pass for any pair
 set, float32 or float64) and counts the launch, or raises; on a CPU tensor
 it takes the plain torch version, ``row_swap_reference`` (axis
 permutations: one for a reversed contiguous field of span <= 16, else one
 per pair), which returns fresh planes. Callers use the returned planes and
-must not rely on their input either way. What bounds the kernel and what
-its design does about it is written at the top of its source.
+must not rely on their input either way.
+
+``cross_row_swap`` takes a ``SwapOp`` whose cross pairs (a row qubit with a
+lane qubit) ``apply._cross_swap_applicable`` accepts, with its row pairs,
+in one launch of ``cross_row_swap_kernel`` of the same source: in place
+when the caller owns the planes, else to fresh planes. On a CPU tensor it
+takes ``cross_row_swap_reference`` (``apply._cross_swap_planes``, then
+``row_swap_reference``). What bounds each kernel and what its design does
+about it is written in the source.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rustqip_tpu_torch.engine import cuda_build
-from rustqip_tpu_torch.engine.apply import _geometry, _row_swap_planes
+from rustqip_tpu_torch.engine.apply import (
+    _cross_swap_applicable,
+    _cross_swap_planes,
+    _geometry,
+    _row_swap_planes,
+)
 
-#: Kernel launches, counted by ``row_swap`` where it launches and nowhere
-#: else.
+#: Kernel launches, counted where each kernel launches and nowhere else:
+#: ``row_swap`` by ``row_swap``, ``row_swap_cross`` by ``cross_row_swap``.
 LAUNCHES: Counter = Counter()
 #: Pairs one launch takes (``RQ_MAX_PAIRS`` in the source).
 MAX_PAIRS = 31
+#: Pairs, cross and row, one cross launch takes (``RQ_CROSS_MAX_PAIRS``).
+CROSS_MAX_PAIRS = 64
+#: Lane bits of one segment of the cross kernel: lanes 0..31.
+SEG_BITS = 5
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +72,57 @@ def _row_bit_pairs(n: int, pairs) -> Tuple[Tuple[int, int], ...]:
     return tuple(out)
 
 
+class CrossPlan(NamedTuple):
+    """The host tables of one launch of the cross kernel (``CrossPlan`` in
+    the source). Bit q of the flat index ``row * 128 + lane`` is qubit
+    ``n - 1 - q``."""
+
+    #: Every pair of the op, cross and row, as (low, high) flat index bits.
+    pairs: Tuple[Tuple[int, int], ...]
+    #: The cross pairs whose lane bit lies in a segment (below ``SEG_BITS``),
+    #: as (flat row bit, lane bit), by row bit: a tile's rows.
+    slots: Tuple[Tuple[int, int], ...]
+    #: Tiles of the state, 2^(n - 5 - c) for c slots.
+    tiles: int
+    #: Blocks of work: 32 segments each, 2^(5 - c) tiles.
+    units: int
+
+
+def cross_plan(n: int, cross, rowp) -> CrossPlan:
+    """The tables of ``cross_row_swap_kernel`` for a ``SwapOp`` split by
+    ``apply._swap_schedule`` into cross pairs (row qubit, lane qubit) on the
+    top row qubits and row pairs; raises ``ValueError`` on any other cross
+    set or on pairs that are not disjoint."""
+    m, _, _ = _geometry(n)
+    n_m = n - m
+    cross = tuple(sorted(tuple(p) for p in cross))
+    lanes = {b for _, b in cross}
+    if (not _cross_swap_applicable(n, cross) or len(lanes) != len(cross)
+            or not all(n_m <= b < n for b in lanes)):
+        raise ValueError(f"cross_row_swap: bad cross set {list(cross)} for n={n}")
+    rows = _row_bit_pairs(n, rowp)
+    if {q for p in rowp for q in p} & {a for a, _ in cross}:
+        raise ValueError(f"cross_row_swap: row pairs {list(rowp)} meet the cross pairs")
+    pairs = [(n - 1 - b, n - 1 - a) for a, b in cross]
+    pairs += [(lo + m, hi + m) for lo, hi in rows]
+    if len(pairs) > CROSS_MAX_PAIRS:
+        raise ValueError(f"cross_row_swap: {len(pairs)} pairs > {CROSS_MAX_PAIRS}")
+    slots = tuple(sorted((hi, lo) for lo, hi in pairs[:len(cross)] if lo < SEG_BITS))
+    tiles = 1 << (n - SEG_BITS - len(slots))
+    units = -(-tiles >> (SEG_BITS - len(slots)))  # ceil: n = 9 fills part of a unit
+    return CrossPlan(tuple(pairs), slots, tiles, units)
+
+
+def cross_row_swap_reference(n: int, cross, rowp, xr: torch.Tensor, xi: torch.Tensor,
+                             inplace: bool = False):
+    """The plain torch version: ``apply._cross_swap_planes`` (in place when
+    the caller owns the planes, ``inplace``), then ``row_swap_reference``."""
+    xr, xi = _cross_swap_planes(n, cross, [xr, xi], inplace)
+    if rowp:
+        xr, xi = row_swap_reference(n, rowp, xr, xi)
+    return xr, xi
+
+
 def parity_pair_sets(n: int):
     """[(name, qubit pairs)]: the pair sets the kernel is held against its
     plain version on (n >= 14): QFT-n's row field, a reversal of up to 13
@@ -73,6 +141,24 @@ def parity_pair_sets(n: int):
     return [(name, pairs) for name, pairs in sets if pairs]
 
 
+def cross_pair_sets(n: int):
+    """[(name, qubit pairs of a SwapOp)]: the sets the cross kernel is held
+    against its plain version on (n >= 16). Between them they cover k = 2,
+    3, 6 and 7 cross pairs; 1, 2, 4 and 5 of them on the lane bits 0..4 that
+    a tile's segment spans (k = 3: lane bits 4, 6, 0, so a tile's row bits
+    are not adjacent); ops with and without row pairs: QFT-n's reversal,
+    and a QPE-like reversal of all qubits but the last."""
+    m, _, _ = _geometry(n)
+    n_m = n - m
+    return [
+        ("k2_lane_bits_6_4", [(0, n_m), (1, n - 5)]),
+        ("k3_with_rows", [(0, n - 5), (1, n_m), (2, n - 1), (3, n_m - 4), (4, n_m - 1)]),
+        ("k6_qpe_reversal", [(j, n - 2 - j) for j in range((n - 1) // 2)]),
+        ("k7_cross_only", [(j, n - 1 - j) for j in range(7)]),
+        (f"qft{n}_reversal", [(j, n - 1 - j) for j in range(n // 2)]),
+    ]
+
+
 _LIB = None
 
 
@@ -84,6 +170,14 @@ def _lib():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.rq_cross_row_swap
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -126,3 +220,43 @@ def row_swap(n: int, pairs: Sequence[Tuple[int, int]], xr: torch.Tensor, xi: tor
         raise RuntimeError(f"row_swap kernel launch failed: CUDA error {err}")
     LAUNCHES["row_swap"] += 1
     return xr, xi
+
+
+def cross_row_swap(n: int, cross, rowp, xr: torch.Tensor, xi: torch.Tensor,
+                   inplace: bool = False):
+    """Apply a ``SwapOp``'s cross pairs and row pairs (``cross_plan``) to
+    (R, 128) planes in one pass; returns ``(xr, xi)``.
+
+    A CUDA state launches ``cross_row_swap_kernel`` once and counts it, or
+    raises: in place on the planes when the caller owns them (``inplace``;
+    a non-contiguous plane is made contiguous first), else into fresh
+    planes, leaving the input as it was. A CPU state takes
+    ``cross_row_swap_reference``."""
+    _, R, C = _geometry(n)
+    xr, xi = xr.reshape(R, C), xi.reshape(R, C)
+    plan = cross_plan(n, cross, rowp)
+    if xr.device.type == "cpu":
+        return cross_row_swap_reference(n, cross, rowp, xr, xi, inplace)
+    if xr.device.type != "cuda":
+        raise ValueError(f"cross_row_swap: no kernel for device {xr.device}")
+    if xr.device != xi.device or xr.dtype != xi.dtype:
+        raise ValueError("cross_row_swap: planes must share one device and dtype")
+    if xr.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cross_row_swap takes f32/f64 planes, got {xr.dtype}")
+    xr, xi = xr.contiguous(), xi.contiguous()
+    yr, yi = (xr, xi) if inplace else (torch.empty_like(xr), torch.empty_like(xi))
+    if any(t.data_ptr() % 16 for t in (xr, xi, yr, yi)):
+        raise ValueError("cross_row_swap needs 16-byte aligned planes")
+    lo, hi = (np.array([p[j] for p in plan.pairs], dtype=np.int32) for j in (0, 1))
+    fbit, lbit = (np.array([s[j] for s in plan.slots] or [0], dtype=np.int32) for j in (0, 1))
+    with torch.cuda.device(xr.device):
+        err = _lib().rq_cross_row_swap(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), xr.element_size(),
+            len(plan.pairs), lo.ctypes.data, hi.ctypes.data, len(plan.slots),
+            fbit.ctypes.data, lbit.ctypes.data, plan.tiles, plan.units,
+            torch.cuda.current_stream(xr.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"cross_row_swap kernel launch failed: CUDA error {err}")
+    LAUNCHES["row_swap_cross"] += 1
+    return yr, yi

@@ -46,7 +46,10 @@ from rustqip_tpu_torch.types import TORCH_REAL
 #: The program's counts, kept whether or not a profiler runs (a reader
 #: takes their difference over its window): ``swap_bytes``, the bytes that
 #: the permutations of the ``SwapOp`` passes run so far must move
-#: (``swap_bytes``), whatever carries them out.
+#: (``swap_bytes``), whatever carries them out; ``swap_cross_plain``, the
+#: ``SwapOp`` passes on CUDA, with the swap kernels on, whose row-lane pairs
+#: ran as plain dense passes because the cross pass does not take them
+#: (one such pair alone, or pairs off the top row qubits).
 COUNTS: Counter = Counter()
 
 _NO_SPAN = contextlib.nullcontext()

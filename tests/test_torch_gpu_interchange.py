@@ -51,8 +51,9 @@ def _closed_form():
 @pytest.mark.parametrize("route", ["qasm", "json"])
 def test_imported_circuit_on_cuda_matches_cpu(cuda, route):
     """The circuit exported and re-imported on the card runs through the
-    window and row-swap kernels, equals the CPU import within 1e-5 and
-    the closed form within 1e-6."""
+    window kernel and the swap pass's cross kernel (its QFT's reversal
+    holds cross pairs: one launch takes them with the row pairs), equals
+    the CPU import within 1e-5 and the closed form within 1e-6."""
     from rustqip_tpu_torch.prelude import LocalBuilder
     from rustqip_tpu_torch.qasm import circuit_from_qasm
     from rustqip_tpu_torch.utils import serialize
@@ -67,11 +68,11 @@ def test_imported_circuit_on_cuda_matches_cpu(cuda, route):
         else:
             imp = serialize.builder_from_json(serialize.circuit_to_json(b), dtype="f32",
                                               device=device)
-        before = (wk.LAUNCHES["window_sweep"], row_swap.LAUNCHES["row_swap"])
+        before = (wk.LAUNCHES["window_sweep"], row_swap.LAUNCHES["row_swap_cross"])
         states.append(imp.calculate_state(seed=0)[0])
         if device is cuda:
             assert wk.LAUNCHES["window_sweep"] > before[0]
-            assert row_swap.LAUNCHES["row_swap"] > before[1]
+            assert row_swap.LAUNCHES["row_swap_cross"] > before[1]
     assert np.abs(states[0] - states[1]).max() <= 1e-5
     want = _closed_form()
     assert max(np.abs(s - want).max() for s in states) <= 1e-6
