@@ -60,7 +60,11 @@
 //   + xi.Br, since Karatsuba's three sets of m64n128 accumulators would
 //   not fit the registers. "rmix" sums, per output row and distinct
 //   matrix, the input strips whose block is that matrix (one GEMM per
-//   matrix), adds its scalar blocks and writes the scratch tile.
+//   matrix, each accumulated from zero: the tensor cores' accumulation
+//   does not round to nearest, so one chain through every GEMM lost
+//   precision with each), sums the GEMMs' products in the scratch tile by
+//   rounded float adds, adds its scalar blocks and writes the scratch
+//   tile.
 // * Element-wise steps take units of four lanes (a float4) of both members
 //   of a pair: rbf two rows, cbf two lane quads (one quad for lane bits 0
 //   and 1), cmix two strips; a thread loads two units before it computes.
@@ -169,6 +173,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// Lane of the scratch tile's row r that holds lane c of an rmix step's
+// partial sums (matrix_step): the 8-lane groups of rows r mod 4 are
+// swapped, so that a warp's float2 accesses of 8 rows x 8 lanes take two
+// shared-memory wavefronts instead of eight.
+__device__ __forceinline__ int s_lane(int r, int c) { return c ^ ((r & 3) << 3); }
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -234,7 +244,7 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 // SA = 1 or -1 (the instruction's scale of a).
 template <int SA>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
-                                           uint64_t b) {
+                                           uint64_t b, int scd) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -264,7 +274,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(SA));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scd), "n"(SA));
 }
 
 // d += (SA a) b on the tensor cores: wgmma m64n64k8, tf32 inputs, f32
@@ -272,7 +282,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
 // SA = 1 or -1 (the instruction's scale of a).
 template <int SA>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t b) {
+                                           uint64_t b, int scd) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -290,7 +300,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4]
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(SA));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scd), "n"(SA));
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -315,9 +325,9 @@ __device__ __forceinline__ void keep(uint32_t (&a)[4]) {
 
 template <int NN, int SA>
 __device__ __forceinline__ void wgmma(float (&d)[NN / 2], const uint32_t (&a)[4],
-                                      uint64_t b) {
-  if constexpr (NN == 128) wgmma_n128<SA>(d, a, b);
-  else wgmma_n64<SA>(d, a, b);
+                                      uint64_t b, int scd = 1) {
+  if constexpr (NN == 128) wgmma_n128<SA>(d, a, b, scd);
+  else wgmma_n64<SA>(d, a, b, scd);
 }
 
 // Descriptor of one k8 step of a B part in shared memory, no swizzle,
@@ -341,11 +351,12 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 }
 
 // d += SA A B in 3xTF32: lo*hi + hi*lo + hi*hi (the lo*lo term is
-// dropped). B's hi part at `b`, its lo part one part on.
+// dropped). B's hi part at `b`, its lo part one part on. scd = 0: d = SA A
+// B (the first product ignores d's old value).
 template <int NN, int SA = 1>
 __device__ __forceinline__ void mma3(float (&d)[NN / 2], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t b) {
-  wgmma<NN, SA>(d, al, bdesc(b));
+                                     const uint32_t (&al)[4], uint32_t b, int scd = 1) {
+  wgmma<NN, SA>(d, al, bdesc(b), scd);
   wgmma<NN, SA>(d, ah, bdesc(b + PART_BYTES));
   wgmma<NN, SA>(d, ah, bdesc(b));
 }
@@ -385,8 +396,8 @@ __device__ __forceinline__ int nth_slab(int m, int nth, int nslab) {
 // xr.Br - xi.Bi, im = xr.Bi + xi.Br. "low"/"lowr" (terms == nullptr)
 // map every active slab through the window's next matrix; "rmix" sums,
 // per output row and distinct matrix, the input strips whose block is that
-// matrix (one GEMM per matrix), adds its scalar blocks and writes the
-// scratch tile S.
+// matrix (one GEMM per matrix, each from zero, summed in S), adds its
+// scalar blocks and writes the scratch tile S.
 template <int NS, int NN>
 __device__ void matrix_step(const Params& P, const Tile& T, const Tile& S,
                             unsigned char* stages,
@@ -476,11 +487,13 @@ __device__ void matrix_step(const Params& P, const Tile& T, const Tile& S,
       keep(acc[0]);
       keep(acc[1]);
       wg_fence();
+      // each matrix of an rmix step accumulates from zero
+      const int fresh = m > 0 && kc == 0 ? 0 : 1;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint32_t b = sb + kk * KK_BYTES;
-        mma3<NN>(acc[0], xh[kk], xl[kk], b);
-        mma3<NN>(acc[1], yh[kk], yl[kk], b);
+        mma3<NN>(acc[0], xh[kk], xl[kk], b, kk == 0 ? fresh : 1);
+        mma3<NN>(acc[1], yh[kk], yl[kk], b, kk == 0 ? fresh : 1);
         if (cplx) {
           const uint32_t bi = b + 2 * PART_BYTES;
           mma3<NN, -1>(acc[0], yh[kk], yl[kk], bi);
@@ -504,6 +517,59 @@ __device__ void matrix_step(const Params& P, const Tile& T, const Tile& S,
       if (tid == 0 && gc + P.nstage < P.nchunks)
         issue_chunk(P, stages, bars, gc + P.nstage);
     }
+    // rmix: each matrix's product accumulates from zero, and the products
+    // are summed in the scratch tile S (in s_lane's layout) by rounded
+    // float adds. The tensor cores' accumulation does not round to
+    // nearest, so its error grows with the length of one accumulator's
+    // chain: on an H100, one chain through every matrix of QV-24's rmix
+    // windows read a median 5.0 times the plain float32 error of a window,
+    // one chain a matrix 2.1 times. Each thread adds only its own outputs:
+    // no barrier.
+    if (m + 1 < nm) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (!vok[hf]) continue;
+        const size_t rowoff = (size_t)vr[hf] * C;
+#pragma unroll
+        for (int jn = 0; jn < NN / 8; ++jn) {
+          const int col = s_lane(vr[hf], n0 + 8 * jn + 2 * q);
+          float2* pr = reinterpret_cast<float2*>(S.re(vs[hf]) + rowoff + col);
+          float2* pi = reinterpret_cast<float2*>(S.im(vs[hf]) + rowoff + col);
+          float2 r = make_float2(acc[0][4 * jn + 2 * hf], acc[0][4 * jn + 2 * hf + 1]);
+          float2 i = make_float2(acc[1][4 * jn + 2 * hf], acc[1][4 * jn + 2 * hf + 1]);
+          if (m > 0) {
+            const float2 a = *pr, b = *pi;
+            r.x += a.x;
+            r.y += a.y;
+            i.x += b.x;
+            i.y += b.y;
+          }
+          *pr = r;
+          *pi = i;
+        }
+      }
+    }
+  }
+
+  // rmix: the earlier matrices' sum joins the last one's; S takes the
+  // output (in its own layout) once every thread has read its sums.
+  if (nm > 1) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (!vok[hf]) continue;
+      const size_t rowoff = (size_t)vr[hf] * C;
+#pragma unroll
+      for (int jn = 0; jn < NN / 8; ++jn) {
+        const int col = s_lane(vr[hf], n0 + 8 * jn + 2 * q);
+        const float2 a = *reinterpret_cast<const float2*>(S.re(vs[hf]) + rowoff + col);
+        const float2 b = *reinterpret_cast<const float2*>(S.im(vs[hf]) + rowoff + col);
+        acc[0][4 * jn + 2 * hf] += a.x;
+        acc[0][4 * jn + 2 * hf + 1] += a.y;
+        acc[1][4 * jn + 2 * hf] += b.x;
+        acc[1][4 * jn + 2 * hf + 1] += b.y;
+      }
+    }
+    __syncthreads();
   }
 
   // Epilogue: this thread's (row, 2 lanes) pairs of every 8-lane group.

@@ -41,7 +41,7 @@ from rustqip_tpu_torch.ops.measurement_ops import (
     sample_outcome,
 )
 from rustqip_tpu_torch.types import TORCH_REAL, real_dtype_of
-from rustqip_tpu_torch.utils.observe import span
+from rustqip_tpu_torch.utils.observe import COUNTS, span
 
 
 @dataclass(frozen=True)
@@ -319,6 +319,7 @@ class CompiledCircuit:
         of 2^n complex amplitudes (16 * 2^n bytes in complex128: 4 GiB at
         n = 28, 64 GiB at n = 32), moved to the device whole: it serves
         the smaller sizes."""
+        COUNTS["circuit_runs"] += 1
         with span("rq.run"):
             if generator is None:
                 generator = torch.Generator()

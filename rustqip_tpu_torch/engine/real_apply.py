@@ -54,7 +54,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     expand_op_matrix,
     op_to_dense,
 )
-from rustqip_tpu_torch.utils.observe import COUNTS, span, swap_bytes
+from rustqip_tpu_torch.utils.observe import COUNTS, pass_bytes, span, swap_bytes
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -817,7 +817,8 @@ def run_sweeps(
     such a plan launches no kernel at all (the plain path). ``inplace``
     (the caller owns the planes) goes to ``apply_op_ri``. A kernel window
     runs in the span ``rq.sweep.kernel``, a plain one in
-    ``rq.sweep.window``."""
+    ``rq.sweep.window``; a plain strip window (h >= 1) is counted in
+    ``observe.COUNTS["window_plain"]`` and ``["window_plain_bytes"]``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
@@ -828,6 +829,9 @@ def run_sweeps(
                     n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog
                 )
         elif kind == "window":
+            if payload[0]:
+                COUNTS["window_plain"] += 1
+                COUNTS["window_plain_bytes"] += pass_bytes(n, re.element_size())
             with span("rq.sweep.window"):
                 re, im = _window_sweep_ri(n, payload, re, im, low_kernel)
         else:

@@ -49,7 +49,11 @@ from rustqip_tpu_torch.types import TORCH_REAL
 #: (``swap_bytes``), whatever carries them out; ``swap_cross_plain``, the
 #: ``SwapOp`` passes on CUDA, with the swap kernels on, whose row-lane pairs
 #: ran as plain dense passes because the cross pass does not take them
-#: (one such pair alone, or pairs off the top row qubits).
+#: (one such pair alone, or pairs off the top row qubits);
+#: ``window_plain``, the plain strip windows run (windows of h >= 1 that
+#: the window kernel does not take), and ``window_plain_bytes``, their
+#: least bytes (``pass_bytes`` each); ``circuit_runs``, the runs of a
+#: ``CompiledCircuit``.
 COUNTS: Counter = Counter()
 
 _NO_SPAN = contextlib.nullcontext()
@@ -71,6 +75,13 @@ def swap_bytes(n: int, op, itemsize: int) -> int:
     2^n - 2^(n-k) amplitudes whose index changes, each read once and
     written once on both planes."""
     return ((1 << n) - (1 << (n - op.half))) * 2 * itemsize * 2
+
+
+def pass_bytes(n: int, itemsize: int) -> int:
+    """Bytes of one pass over a 2^n state's (re, im) planes: every
+    amplitude read once and written once on both planes, the least that
+    a window over the whole state moves."""
+    return (1 << n) * 2 * itemsize * 2
 
 
 @dataclass
@@ -142,7 +153,7 @@ def _compiled(circuit):
 
 def _sweep_bytes(cc) -> int:
     """Bytes one sweep moves: the state read once and written once."""
-    return 2 * (1 << cc.n) * np.dtype(cc.dtype).itemsize
+    return pass_bytes(cc.n, np.dtype(cc.rdtype).itemsize)
 
 
 class _Clock:

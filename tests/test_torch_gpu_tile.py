@@ -6,8 +6,9 @@ against the plain version's float32 matmuls). Windows with several tiles
 to a CTA or 8-row tiles also run from their input into fresh planes
 (``out=``), which must equal the in-place result bit for bit and leave the
 input bit-equal; ``c64_low_matmul`` leaves its input bit-equal; strips a
-window does not write keep their bits. Every test is marked ``gpu`` and
-skips without a card; the file imports no JAX:
+window does not write keep their bits; an rmix of 16 complex matrices
+stays within 4x the plain float32 version's error against float64. Every
+test is marked ``gpu`` and skips without a card; the file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu_tile.py -q
 """
@@ -22,6 +23,7 @@ from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import window_seg_sizes
 from rustqip_tpu_torch.engine.parity_windows import rand_u, tile_windows
 from rustqip_tpu_torch.interop import planes_from_numpy
+from rustqip_tpu_torch.prelude import LocalBuilder
 
 N = 20
 TOL = 1e-6
@@ -144,3 +146,36 @@ def test_untouched_strips_keep_their_bits(cuda):
     for got, want, orig in zip(a, b, x):
         assert (got - want).abs().max().item() <= TOL
         assert torch.equal(wk._strip_views(prog, got)[0], wk._strip_views(prog, orig)[0])
+
+
+def rmix16_circuit(b, n):
+    """A dense random 4-qubit gate on the two top row qubits and the two
+    top lane qubits: one tile-path window of one rmix step of 16 distinct
+    complex matrices (4 x 4 blocks of 128 x 128) under the H100's
+    admission."""
+    qs = [b.qubit() for _ in range(n)]
+    b.apply_matrix(b.merge_registers([qs[0], qs[1], qs[n - 2], qs[n - 1]]), rand_u(4, 5))
+
+
+def test_rmix_of_many_matrices_keeps_float32_precision(cuda):
+    """Each matrix of an rmix step accumulates from zero on the tensor
+    cores and the products are summed by rounded float adds: the kernel's
+    error against the window in float64 stays within 4x the plain float32
+    version's. (The tensor cores' accumulation does not round to nearest:
+    one accumulator through all 16 GEMMs lost precision with each.)"""
+    b = LocalBuilder(dtype="f32", device="cuda", kernel_ok=True)
+    rmix16_circuit(b, N)
+    ((kind, (seg, ksteps, prog), _),) = [s for seg in b.compile().sweeps for s in seg]
+    assert kind == "kwindow" and prog.path == "tile" and prog.kinds == ("rmix",)
+    assert prog.nchunks == 16 * 8
+    x = _planes(cuda, 77)
+    k = wk.window_sweep(N, x[0].clone(), x[1].clone(), seg, ksteps, prog=prog)
+    d = wk.window_sweep_reference(N, x[0].double(), x[1].double(), seg, ksteps, prog=prog)
+    f = wk.window_sweep_reference(N, x[0].clone(), x[1].clone(), seg, ksteps, prog=prog)
+    torch.cuda.synchronize()
+
+    def err(y):
+        return max((y[0].double() - d[0]).abs().max().item(),
+                   (y[1].double() - d[1]).abs().max().item())
+
+    assert 0 < err(k) <= 4 * err(f)
