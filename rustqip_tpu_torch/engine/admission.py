@@ -31,6 +31,21 @@ WINDOW_KERNEL_MAX_LOW = 24
 
 _C = 128
 
+#: Step kinds that combine strips at one (row, lane) position only. A
+#: window of these alone takes the window kernel's register path
+#: (``csrc/window_stream.cu``), which holds no tile; any other window takes
+#: the tile path (``csrc/window_sweep.cu``).
+STREAM_KINDS = frozenset({"mix", "diag", "cmix"})
+
+
+def takes_registers(kinds) -> bool:
+    """Whether a window whose steps are of ``kinds`` takes the register
+    path: the one rule ``encode_window`` (kernel steps) and
+    ``HopperSmemAdmission`` (collected steps) read. The two step formats
+    name the strip-local kinds alike, and a matrix step is ``low`` in one
+    and ``low`` or ``lowr`` in the other, so both give one answer."""
+    return set(kinds) <= STREAM_KINDS
+
 
 def window_seg_sizes(n: int, hq):
     """Row-space segment sizes around the window bits:
@@ -179,7 +194,11 @@ def hopper_tile_rows(h: int, has_rmix: bool, seg_last: int) -> int:
 
 
 class HopperSmemAdmission:
-    """The H100 window kernel's admission (shared-memory tiles)."""
+    """The H100 window kernel's admission (shared-memory tiles). The tile's
+    8-row minimum binds only windows that take the tile path: a window of
+    strip-local steps takes the register path, whose warps each take one
+    strip-local row wherever the window bits fall, and is admitted whatever
+    its trailing row segment."""
 
     name = "hopper_smem"
     #: A 1-strip tile holds 128 rows, so row butterflies reach bit 6.
@@ -202,7 +221,7 @@ class HopperSmemAdmission:
             return False
         segs = window_seg_sizes(n, hq)
         bt = self.block_rows(h, steps, segs[-1])
-        if bt < self.MIN_TILE_ROWS:
+        if bt < self.MIN_TILE_ROWS and not takes_registers(s[0] for s in steps):
             return False
         n_low, n_diag, n_cbf, rbf_bits, n_rmix, n_rmix_mats, n_mix = (
             _step_counts(steps)
@@ -212,6 +231,14 @@ class HopperSmemAdmission:
         if n_low + n_rmix_mats > WINDOW_KERNEL_MAX_LOW:
             return False
         return _worth_it(h, n_low, n_diag, n_cbf, len(rbf_bits), n_rmix, n_mix)
+
+
+def thin_segment(seg_sizes) -> bool:
+    """Whether a window's trailing row segment is under the tile path's
+    smallest tile (``HopperSmemAdmission.MIN_TILE_ROWS``): on such a
+    segment the H100's admission takes only windows that
+    ``takes_registers``."""
+    return seg_sizes[-1] < HopperSmemAdmission.MIN_TILE_ROWS
 
 
 TPU_REFERENCE = TpuReferenceAdmission()

@@ -24,6 +24,7 @@ from rustqip_tpu_torch.engine.admission import (
     TPU_REFERENCE,
     WINDOW_MAX_OPS,
     for_device,
+    thin_segment,
     window_seg_sizes,
 )
 from rustqip_tpu_torch.engine.apply import (
@@ -818,12 +819,16 @@ def run_sweeps(
     (the caller owns the planes) goes to ``apply_op_ri``. A kernel window
     runs in the span ``rq.sweep.kernel``, a plain one in
     ``rq.sweep.window``; a plain strip window (h >= 1) is counted in
-    ``observe.COUNTS["window_plain"]`` and ``["window_plain_bytes"]``."""
+    ``observe.COUNTS["window_plain"]`` and ``["window_plain_bytes"]``, a
+    register-path window on a thin trailing row segment
+    (``admission.thin_segment``) in ``["window_stream_thin"]``."""
     _, R, C = _geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
         if kind == "kwindow":
             seg, ksteps, prog = payload
+            if prog.path == "registers" and thin_segment(seg):
+                COUNTS["window_stream_thin"] += 1
             with span("rq.sweep.kernel"):
                 re, im = window_kernel.window_sweep(
                     n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog

@@ -16,7 +16,8 @@ steps are all strip-local (``STREAM_KINDS``: mix, diag, cmix), and
 window with a row butterfly or a matrix step. What bounds each and what its
 design does about that is written at the top of its file.
 ``encode_window`` turns a window's kernel steps into the step program both
-paths interpret and picks the path (``WindowProgram.path``);
+paths interpret and picks the path (``WindowProgram.path``) by
+``admission.takes_registers``, the rule the H100's admission reads too;
 ``CompiledCircuit`` encodes each window once at compile time and keeps the
 program on the device.
 
@@ -44,7 +45,10 @@ from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine.admission import (
     HOPPER_SMEM_BYTES,
     HOPPER_SMEM_HEADER,
+    STREAM_KINDS,  # noqa: F401  (the path rule's kinds, named here too)
+    HopperSmemAdmission,
     hopper_tile_rows,
+    takes_registers,
 )
 from rustqip_tpu_torch.types import MINOR_QUBITS
 
@@ -307,9 +311,6 @@ def _window_matrix_operands(steps):
 KINDS = ("mix", "rmix", "diag", "cbf", "rbf", "cmix", "low", "lowr")
 _KIND_CODE = {k: i for i, k in enumerate(KINDS)}
 _REC = 8
-#: Step kinds that combine strips at one (row, lane) position only: a
-#: window of these alone takes the register-streaming path.
-STREAM_KINDS = frozenset({"mix", "diag", "cmix"})
 #: Mix term types, folded as ``pallas_kernels._scalar_pair`` folds a
 #: coefficient v: 1 passes the input through, a real or a pure-imaginary v
 #: takes two products, any other v four (v == 0 is dropped).
@@ -801,7 +802,7 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
         nchunks=nchunks,
         stage_bytes=stage_bytes,
         group=group,
-        path="registers" if kinds <= STREAM_KINDS else "tile",
+        path="registers" if takes_registers(kinds) else "tile",
     )
     if nchunks:
         room = (HOPPER_SMEM_BYTES - prog.smem_bytes) // stage_bytes
@@ -1106,6 +1107,16 @@ def window_sweep(
         return xr, xi
     yr, yi = (xr, xi) if out is None else out
     stream = prog.path == "registers"
+    srows = xr.shape[0] >> prog.h
+    # A tile under the tile path's smallest computes right but is not worth
+    # a launch, so the H100's admission plans none: one comes only from a
+    # plan of another admission, unless it holds a whole strip of a state
+    # that small (c64_low_matmul under 8 rows).
+    if not stream and prog.bt < min(HopperSmemAdmission.MIN_TILE_ROWS, srows):
+        raise ValueError(
+            f"a {prog.bt}-row tile is under the tile path's "
+            f"{HopperSmemAdmission.MIN_TILE_ROWS} (plan with HopperSmemAdmission)"
+        )
     if not stream and (1 << (prog.max_rbf_bit + 1)) > prog.bt:
         raise ValueError(
             f"rbf bit {prog.max_rbf_bit} does not fit a {prog.bt}-row tile "
@@ -1114,7 +1125,6 @@ def window_sweep(
     if any(t.data_ptr() % 16 for t in (xr, xi, yr, yi)):
         raise ValueError("window_sweep needs 16-byte aligned planes")
     iprog, fprog, bstream = prog.tensors(xr.device)
-    srows = xr.shape[0] >> prog.h
     with torch.cuda.device(xr.device):
         cuda_stream = torch.cuda.current_stream(xr.device).cuda_stream
         if stream:

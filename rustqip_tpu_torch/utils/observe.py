@@ -52,8 +52,11 @@ from rustqip_tpu_torch.types import TORCH_REAL
 #: (one such pair alone, or pairs off the top row qubits);
 #: ``window_plain``, the plain strip windows run (windows of h >= 1 that
 #: the window kernel does not take), and ``window_plain_bytes``, their
-#: least bytes (``pass_bytes`` each); ``circuit_runs``, the runs of a
-#: ``CompiledCircuit``.
+#: least bytes (``pass_bytes`` each); ``window_stream_thin``, the kernel
+#: windows run on the register path whose trailing row segment is under
+#: the tile path's smallest tile (``admission.thin_segment``), which the
+#: H100's admission takes only because they hold no tile;
+#: ``circuit_runs``, the runs of a ``CompiledCircuit``.
 COUNTS: Counter = Counter()
 
 _NO_SPAN = contextlib.nullcontext()
