@@ -155,17 +155,12 @@ def window_bound(prog, n: int):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def kernel_modules():
-    """{kernel name: the module whose wrapper counts its launches}.
-    ``window_sweep`` counts every launch of the window kernel,
-    ``window_stream`` the launches of its register-streaming path;
-    ``row_swap`` the row-pair kernel and ``row_swap_cross`` the cross kernel
-    of ``row_swap.cu``. Every name but ``row_swap_cross`` is also a source."""
-    from rustqip_tpu_torch.engine import copy_probe, row_swap
-    from rustqip_tpu_torch.engine import window_kernel as wk
-
-    return {"window_sweep": wk, "window_stream": wk, "row_swap": row_swap,
-            "row_swap_cross": row_swap, "plane_copy": copy_probe}
+#: The kernel launch counts the smoke reads (``cuda_build.LAUNCHES``).
+#: ``window_sweep`` counts every launch of the window kernel,
+#: ``window_stream`` the launches of its register-streaming path;
+#: ``row_swap`` the row-pair kernel and ``row_swap_cross`` the cross kernel
+#: of ``row_swap.cu``. Every name but ``row_swap_cross`` is also a source.
+LAUNCH_NAMES = ("window_sweep", "window_stream", "row_swap", "row_swap_cross", "plane_copy")
 
 
 def tile_twin(prog):
@@ -177,12 +172,23 @@ def tile_twin(prog):
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
-        mod.reset_launch_counts()
+    from rustqip_tpu_torch.engine import cuda_build
+
+    cuda_build.reset_launch_counts()
 
 
 def read_launches() -> dict:
-    return {name: mod.LAUNCHES[name] for name, mod in kernel_modules().items()}
+    from rustqip_tpu_torch.engine import cuda_build
+
+    return {name: cuda_build.LAUNCHES[name] for name in LAUNCH_NAMES}
+
+
+def read_kinds() -> dict:
+    """Window kernel launches by step kind of the launched program."""
+    from rustqip_tpu_torch.engine import cuda_build
+
+    p = cuda_build.KIND_PREFIX
+    return {k[len(p):]: v for k, v in cuda_build.LAUNCHES.items() if k.startswith(p)}
 
 
 def phase_env():
@@ -224,7 +230,7 @@ def phase_build():
     if cuda_build.BUILD_DIR.exists():
         shutil.rmtree(cuda_build.BUILD_DIR)
     t0 = time.perf_counter()
-    names = [k for k in kernel_modules() if (cuda_build.CSRC / f"{k}.cu").exists()]
+    names = [k for k in LAUNCH_NAMES if (cuda_build.CSRC / f"{k}.cu").exists()]
     per = cuda_build.build(*names)
     for name in names:
         cuda_build.load(name)
@@ -287,7 +293,7 @@ def phase_parity():
             kinds |= set(prog.kinds)
         if diff > KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain max|diff| {diff}")
-        seen |= set(wk.KIND_LAUNCHES)
+        seen |= set(read_kinds())
         worst = max(worst, diff)
         rows.append({"window": name, "kinds": sorted(kinds), "paths": sorted(paths),
                      "max_abs_diff": diff})
@@ -310,15 +316,15 @@ def phase_parity():
         rows.append({"window": name, "kinds": sorted(kinds), "paths": sorted(paths),
                      "max_abs_diff": diff})
         paths = set()
-    seen |= set(wk.KIND_LAUNCHES)
+    seen |= set(read_kinds())
     missing = set(wk.KINDS) - seen
     if missing:
         raise AssertionError(f"step kinds never launched: {sorted(missing)}")
-    if not wk.LAUNCHES["window_stream"]:
+    if not read_launches()["window_stream"]:
         raise AssertionError("the register-streaming path never launched")
     emit({"phase": "kernel_vs_plain", "n": n, "tol": KERNEL_TOL,
-          "windows": rows, "kinds_launched": dict(wk.KIND_LAUNCHES),
-          "launches": dict(wk.LAUNCHES)})
+          "windows": rows, "kinds_launched": read_kinds(),
+          "launches": read_launches()})
     return worst
 
 
@@ -436,7 +442,6 @@ def phase_capacity():
     import torch
 
     from rustqip_tpu_torch.algos import grover_iteration, qfft
-    from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.compile import MeasureEntry
     from rustqip_tpu_torch.prelude import LocalBuilder
     from rustqip_tpu_torch.utils import observe
@@ -512,7 +517,7 @@ def phase_capacity():
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / gib
         launches = read_launches()
-        kinds = dict(wk.KIND_LAUNCHES)
+        kinds = read_kinds()
         err, extra = check(re, im, res)
         del re, im, res
         if launches["window_sweep"] <= 0 \
@@ -626,7 +631,6 @@ def run_circuit(name, make, check):
     returns ``(compiled circuit, initial index, handles)``."""
     import torch
 
-    from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.utils import observe
 
     out = {}
@@ -643,7 +647,7 @@ def run_circuit(name, make, check):
         torch.cuda.synchronize()
         if kernel:
             launches = read_launches()
-            kinds = dict(wk.KIND_LAUNCHES)
+            kinds = read_kinds()
             cross_plain = observe.COUNTS["swap_cross_plain"] - cross_plain
         check(re, im, res, handles)
         # the plain path was just run once: time one more run of it
@@ -888,7 +892,6 @@ def phase_main():
     del grover_states, gr, gi, nr, ni
 
     # (h) bench.py's fused and unfused arms, kernel vs plain paths.
-    from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.admission import HOPPER
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps, run_sweeps
 
@@ -914,7 +917,7 @@ def phase_main():
         if launches["window_sweep"] <= 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
         total.update(launches)
-        kinds = dict(wk.KIND_LAUNCHES)
+        kinds = read_kinds()
         kind_launches.update(kinds)
         pr, pi = run_sweeps(n, ps, x0[0].clone(), x0[1].clone())
         diff = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
@@ -1282,7 +1285,6 @@ def phase_interchange():
 
     from rustqip_tpu_torch.algos import add, qfft
     from rustqip_tpu_torch.engine import cpu_native
-    from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.compile import UnitaryEntry, compile_pipeline
     from rustqip_tpu_torch.interop import planes_to_numpy
     from rustqip_tpu_torch.ops.measurement_ops import measure_prob
@@ -1304,7 +1306,7 @@ def phase_interchange():
         if launches["window_sweep"] <= 0:
             raise AssertionError("interchange: a run launched no window kernel")
         total.update(launches)
-        kinds.update(wk.KIND_LAUNCHES)
+        kinds.update(read_kinds())
         counts = cc.sweep_counts()
         ms = cuda_ms(lambda: cc.run(init, initial_state=initial_state))
         return (re, im), {"sweeps": sum(counts.values()), "kwindow_sweeps": counts["kwindow"],
@@ -1489,7 +1491,6 @@ def phase_sharded():
     import torch
 
     from rustqip_tpu_torch.algos import grover_iteration, qfft
-    from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.admission import HOPPER
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps, plan_sweeps, run_sweeps
     from rustqip_tpu_torch.ops import gates
@@ -1536,7 +1537,7 @@ def phase_sharded():
         torch.cuda.synchronize()
         launches = read_launches()
         total.update(launches)
-        kinds.update(wk.KIND_LAUNCHES)
+        kinds.update(read_kinds())
         return out, launches
 
     def report(path, err, launches, sharded_ms, single_ms, **extra):
@@ -1780,7 +1781,9 @@ def phase_state_api():
     from rustqip_tpu_torch.engine import apply_op, apply_ops, compile_pipeline
     from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.admission import HOPPER
-    from rustqip_tpu_torch.engine.apply import _dense_plan, _join, _mat_key, _split, _swap_schedule
+    from rustqip_tpu_torch.engine.apply import _dense_plan, _mat_key, _swap_schedule
+    from rustqip_tpu_torch.types import join_planes as _join
+    from rustqip_tpu_torch.types import split_state as _split
     from rustqip_tpu_torch.engine.real_apply import compile_sweeps, run_sweeps
     from rustqip_tpu_torch.engine.row_swap import row_swap_reference
     from rustqip_tpu_torch.ops import MeasuredCondition, measure, measure_probs, prob_magnitude
@@ -1800,7 +1803,7 @@ def phase_state_api():
         torch.cuda.synchronize()
         launches = read_launches()
         total.update(launches)
-        kinds.update(wk.KIND_LAUNCHES)
+        kinds.update(read_kinds())
         return out, launches
 
     def diff(c, re, im):
@@ -2091,7 +2094,6 @@ def phase_examples(smi):
 
     import torch
 
-    from rustqip_tpu_torch.engine import window_kernel as wk
 
     total, kinds = Counter(), Counter()
     for name in EXAMPLES:
@@ -2106,7 +2108,7 @@ def phase_examples(smi):
                 values = mod.main()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            calls.append((ms, read_launches(), dict(wk.KIND_LAUNCHES),
+            calls.append((ms, read_launches(), read_kinds(),
                           check_example(name, buf.getvalue(), values)))
         (first_ms, launches, kind_launches, checked), (warm_ms, warm_launches, _, _) = calls
         if name in EXAMPLES_ON_THE_KERNEL and not launches["window_sweep"]:

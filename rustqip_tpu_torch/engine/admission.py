@@ -18,11 +18,16 @@ never read different rules:
   butterfly ("rbf") needs its partner row inside the tile. Used when the
   state lives on CUDA. Plans may then differ from the reference's;
   amplitudes may not.
+
+Whether a run takes the kernels at all is ``kernel_policy``, written once
+here: CUDA by default, float32 only.
 """
 
 from __future__ import annotations
 
-from rustqip_tpu_torch.engine.apply import _geometry, _row_segment_shape
+import torch
+
+from rustqip_tpu_torch.types import geometry, row_segment_shape
 
 #: Longest op run collected into one window (real_apply.py:261).
 WINDOW_MAX_OPS = 64
@@ -50,8 +55,8 @@ def takes_registers(kinds) -> bool:
 def window_seg_sizes(n: int, hq):
     """Row-space segment sizes around the window bits:
     (s_0, ..., s_h) with rows = s_0 * 2 * s_1 * 2 * ... * s_h."""
-    m, _, _ = _geometry(n)
-    return _row_segment_shape(n, m, list(hq))[0::2]
+    m, _, _ = geometry(n)
+    return row_segment_shape(n, m, list(hq))[0::2]
 
 
 def _step_counts(steps):
@@ -150,7 +155,7 @@ class TpuReferenceAdmission:
     def applicable(self, n: int, hq, steps) -> bool:
         """``real_apply._window_kernel_applicable``:859."""
         h = len(hq)
-        _, _, C = _geometry(n)
+        _, _, C = geometry(n)
         if h > 4 or C != 128:
             return False
         segs = window_seg_sizes(n, hq)
@@ -216,7 +221,7 @@ class HopperSmemAdmission:
 
     def applicable(self, n: int, hq, steps) -> bool:
         h = len(hq)
-        _, _, C = _geometry(n)
+        _, _, C = geometry(n)
         if h > 4 or C != 128:
             return False
         segs = window_seg_sizes(n, hq)
@@ -247,6 +252,15 @@ HOPPER = HopperSmemAdmission()
 
 def for_device(device) -> "TpuReferenceAdmission | HopperSmemAdmission":
     """Hopper admission for CUDA states, the reference's elsewhere."""
-    import torch
-
     return HOPPER if torch.device(device).type == "cuda" else TPU_REFERENCE
+
+
+def kernel_policy(devices, dtype: torch.dtype, kernel_ok: "bool | None" = None) -> bool:
+    """Whether a run takes the kernels: ``kernel_ok`` when the caller says,
+    else whether every one of ``devices`` is CUDA; never unless the planes'
+    real ``dtype`` is float32 (the kernels are float32-only, as in the JAX
+    package). The one rule that single-device circuits, per-call op runs
+    and sharded schedules read."""
+    if kernel_ok is None:
+        kernel_ok = all(torch.device(d).type == "cuda" for d in devices)
+    return bool(kernel_ok) and dtype == torch.float32

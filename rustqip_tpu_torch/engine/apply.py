@@ -1,21 +1,14 @@
-"""Host-side gate plans and the plane helpers of the plain torch paths.
+"""Host-side gate plans and the plain torch passes over (re, im) planes.
 
 Port of the parts of ``rustqip_tpu/engine/apply.py`` that the (re, im)
-execution domain uses: the canonical ``(R, C)`` geometry (``_geometry``),
-the dense block plan (``_dense_plan``), the phase-product monomial plan
-(``_phase_plan``/``_phase_mul_ri``), the gather passes of wide sparse ops
-(``_sparse_apply_planes``) and function ops (``_fn_apply_planes``),
-control masks, the structured swap passes and the reflection pass. Plans
-are numpy and cached; the passes are
-torch on whatever device the planes live on.
-
-The state-vector API at the end (``apply_op``, ``apply_op_add``,
-``apply_ops``, ``as_vector``, ``as_tensor``) takes flat complex states and
-runs them in the port's one execution domain, (re, im) planes of shape
-``(R, 128)`` in f32 or f64: one split, the plane engine, one join. The JAX
-package's two complex formulations behind the same names, the TPU-tiled
-``_apply_to_state`` and the CPU rank-n ``_t_apply``, are backend choices
-that the plane engine replaces, and are not carried over.
+execution domain uses: the dense block plan (``_dense_plan``), the
+phase-product monomial plan (``_phase_plan``/``_phase_mul_ri``), the
+gather passes of wide sparse ops (``_sparse_apply_planes``) and function
+ops (``_fn_apply_planes``), control masks, the structured swap passes and
+the reflection pass. Plans are numpy and cached; the passes are torch on
+whatever device the planes live on. The plane format itself (the
+``(R, C)`` geometry, the state-to-planes conversions) is ``types``'; the
+state-vector API over these passes is ``real_apply``'s.
 
 Index conventions are the reference's: qubit q is bit ``n-1-q`` of the
 state index; in the (R, C) view row qubits are ``q < n - m`` (row bit
@@ -37,7 +30,6 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
     FnOp,
-    MatrixOp,
     PhaseProductOp,
     ReflectionOp,
     SparseOp,
@@ -45,17 +37,11 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     expand_op_matrix,
     fn_values,
 )
-from rustqip_tpu_torch.ops.measurement_ops import _fresh
-from rustqip_tpu_torch.types import MINOR_QUBITS
+from rustqip_tpu_torch.types import fresh_plane, geometry, row_segment_shape
 from rustqip_tpu_torch.utils.bits import move_bits
 
 #: Largest op support materialized as a dense matrix on the host.
 DENSE_CAP = 10
-
-
-def _geometry(n: int) -> Tuple[int, int, int]:
-    m = min(n, MINOR_QUBITS)
-    return m, 1 << (n - m), 1 << m
 
 
 def _const(arr, like: torch.Tensor) -> torch.Tensor:
@@ -73,25 +59,12 @@ def _sorted_dense(indices: Tuple[int, ...], mat: np.ndarray):
     return order, expand_op_matrix(np.asarray(mat), positions, k)
 
 
-def _row_segment_shape(n: int, m: int, high: Sequence[int]) -> Tuple[int, ...]:
-    """Row-space shape exposing each high qubit as its own 2-axis:
-    (seg, 2, seg, 2, ..., seg)."""
-    shape: List[int] = []
-    prev = 0
-    for q in high:
-        shape.append(1 << (q - prev))
-        shape.append(2)
-        prev = q + 1
-    shape.append(1 << ((n - m) - prev))
-    return tuple(shape)
-
-
 @lru_cache(maxsize=512)
 def _dense_plan(n: int, indices: Tuple[int, ...], mat_key):
     """Host-side plan for a dense apply: expanded numpy blocks + shapes.
     ``mat_key`` is (bytes, shape) so plans cache across identical gates."""
     mat = np.frombuffer(mat_key[0], dtype=np.complex128).reshape(mat_key[1])
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     order, mat_s = _sorted_dense(indices, mat)
     high = [q for q in order if q < n - m]
     low = [q for q in order if q >= n - m]
@@ -114,7 +87,7 @@ def _dense_plan(n: int, indices: Tuple[int, ...], mat_key):
                 blocks[(hj, hi)] = ("scalar", complex(sub[0, 0]))
             else:
                 blocks[(hj, hi)] = ("mat", expand_op_matrix(sub, lpos, m))
-    seg_shape = _row_segment_shape(n, m, high)
+    seg_shape = row_segment_shape(n, m, high)
     return ("blocks", blocks, seg_shape, h, R, C)
 
 
@@ -165,7 +138,7 @@ def _phase_plan(n: int, terms):
     row-only, col-only and mixed (row-subset, col-subset, coeff) groups —
     one group set for the phase angle, an optional second for the
     log-magnitude of non-unit-modulus diagonals."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
 
     def empty():
@@ -206,7 +179,7 @@ def _iota_bit_helpers(n: int, like: torch.Tensor):
     """(rows, cols, row_bit, col_bit, mono) over the (R, C) index vectors
     — the one definition of the row/col bit convention used by every
     monomial evaluator below."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     n_m = n - m
     rows = torch.arange(R, device=like.device)
     cols = torch.arange(C, device=like.device)
@@ -229,7 +202,7 @@ def _iota_bit_helpers(n: int, like: torch.Tensor):
 def _sep_monomial_vals(n: int, groups, like: torch.Tensor):
     """(row_val (R,), col_val (C,), mixed) from one monomial group set."""
     const, row_monos, col_monos, mixed = groups
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     _, _, row_bit, col_bit, mono = _iota_bit_helpers(n, like)
     row_val = torch.full((R,), const, dtype=like.dtype, device=like.device)
     for rq, c in row_monos:
@@ -264,7 +237,7 @@ MIXED_SELECT_CAP = 24
 
 def _phase_mul_ri(n: int, op, r2d: torch.Tensor, i2d: torch.Tensor):
     """Multiply (re, im) planes by a PhaseProductOp's diagonal."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     n_m = n - m
     angle_g, mag_g = _phase_plan(n, op.terms)
     rows, cols, _, _, _ = _iota_bit_helpers(n, r2d)
@@ -323,7 +296,7 @@ def _bit_runs(n: int, indices: Tuple[int, ...]):
     row runs, the column runs, and the row and column masks of the op's
     bits."""
     k = len(indices)
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     runs = {True: [], False: []}
     for j in reversed(range(k)):
@@ -370,7 +343,7 @@ def _sparse_plan(n: int, indices: Tuple[int, ...], rows):
     spread of an op-local column index onto the row/col bits of the (R, C)
     view."""
     k = len(indices)
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     dim = 1 << k
     max_nnz = max(len(r) for r in rows)
@@ -401,7 +374,7 @@ def _sparse_apply_planes(n: int, op, re2d: torch.Tensor, im2d: torch.Tensor):
     max_nnz, cols_t, vre_t, vim_t, spread_row, spread_col = _sparse_plan(
         n, tuple(op.indices), op.rows
     )
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     dev = re2d.device
 
     def table(a, dtype=torch.int64):
@@ -439,7 +412,7 @@ def _fn_apply_planes(n: int, op, re2d: torch.Tensor, im2d: torch.Tensor):
     position's source column and value, then ONE gather + multiply; a
     ``diagonal`` op skips the gather (one elementwise multiply). Nothing is
     tabled: O(block) memory at any width. Returns fresh planes."""
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     dev = re2d.device
     row_runs, col_runs, _, _ = _bit_runs(n, tuple(op.indices))
     to_row, to_col = _inverse_runs(row_runs), _inverse_runs(col_runs)
@@ -487,7 +460,7 @@ def _control_mask_2d(
 def _col_relabel_table(n: int, layout) -> np.ndarray:
     """(C,) gather table: output col slot s holds the input bit at col
     position ``layout[s]`` (positions are qubit ids >= n-m)."""
-    m, _, C = _geometry(n)
+    m, _, C = geometry(n)
     cols = np.arange(C)
     src = np.zeros(C, dtype=np.int64)
     for s, q in enumerate(layout):
@@ -499,7 +472,7 @@ def _col_relabel_table(n: int, layout) -> np.ndarray:
 def _split_swap_pairs(n: int, op):
     """(cross_pairs, same_pairs): cross pairs exchange a row qubit with a
     column qubit; same pairs stay within one side."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     cross, same = [], []
     for a, b in zip(op.indices[: op.half], op.indices[op.half :]):
@@ -517,7 +490,7 @@ def _owned_plane(x: torch.Tensor, R: int, C: int, inplace: bool) -> torch.Tensor
     stays as it was."""
     if inplace:
         return x.reshape(R, C).contiguous()
-    return _fresh(x, R, C)
+    return fresh_plane(x, R, C)
 
 
 @lru_cache(maxsize=64)
@@ -528,7 +501,7 @@ def _cross_swap_perm(n: int, cross: Tuple[Tuple[int, int], ...]) -> np.ndarray:
     each group moves the same way. The table is the JAX package's staged
     pass (col relabel, block transpose, col relabel back) applied to the
     indices of one group."""
-    m, _, C = _geometry(n)
+    m, _, C = geometry(n)
     n_m = n - m
     k = len(cross)
     staged = [b for _, b in cross]
@@ -550,7 +523,7 @@ def _cross_swap_planes(n: int, cross, planes, inplace: bool = False):
     elements, each read, permuted and written back: in place when the
     caller owns the planes (``inplace``), else on copies. Exact: elements
     only move."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     cross = tuple(sorted(cross))
     k = len(cross)
     if [a for a, _ in cross] != list(range(k)):
@@ -571,7 +544,7 @@ def _cross_swap_planes(n: int, cross, planes, inplace: bool = False):
 
 
 def _cross_swap_applicable(n: int, cross) -> bool:
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     k = len(cross)
     if k < 2 or k > min(n - m, m):
         return False
@@ -581,7 +554,7 @@ def _cross_swap_applicable(n: int, cross) -> bool:
 def _split_same_pairs(n: int, same):
     """(row_pairs, col_pairs, mixed): same-side pairs by side; ``mixed``
     collects row<->col pairs that fall back to dense passes."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     rowp, colp, mixed = [], [], []
     for a, b in same:
@@ -603,7 +576,7 @@ def _row_swap_planes(n: int, pairs, planes):
     """Row-row swap pairs as axis permutations (pure copies). Pairs that
     reverse one contiguous row-bit field (QFT's bit reversal) collapse
     into ONE permutation."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     n_m = n - m
     fused = _row_field_reversal(n_m, pairs)
     outs = []
@@ -644,7 +617,7 @@ def _row_field_reversal(n_m: int, pairs):
 
 def _col_swap_planes(n: int, pairs, planes):
     """Col-col swap pairs as ONE lane relabel (a 128-entry gather)."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     n_m = n - m
     layout = list(range(n_m, n))
     for a, b in pairs:
@@ -679,7 +652,7 @@ def _reflection_plan(n: int, indices: Tuple[int, ...]):
     each stage's reshape exposing a group of them with the bits between
     merged, so no reshape passes the limit. Returns ``(B, stages)``, each
     stage ``(shape, axes)``."""
-    m, _R, C = _geometry(n)
+    m, _R, C = geometry(n)
     n_m = n - m
     col_q = [q for q in indices if q >= n_m]
     row_q = set(q for q in indices if q < n_m)
@@ -759,7 +732,7 @@ def _apply_reflection_2d(n: int, op, x2d: torch.Tensor, inplace: bool = False) -
     when the caller owns it (``inplace``), else on a copy. A plan of more
     than one reshape stage (more than 24 row-bit runs) takes the staged
     sums of ``_reflection_sum_2d``, whose temporaries are plane-sized."""
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     B, stages = _reflection_plan(n, tuple(op.indices))
     scale = 2.0 / (1 << op.num_indices)
     if len(stages) > 1:
@@ -817,86 +790,3 @@ def _reindex_op(op, new_indices: Tuple[int, ...]):
         # |s><s| is symmetric under permutations of its qubits: re-sort.
         return ReflectionOp(tuple(sorted(new_indices)))
     raise TypeError(f"Unknown op {op!r}")
-
-
-# ---------------------------------------------------------------------------
-# The state-vector API (L0): flat complex 2^n states in, new states out.
-# ---------------------------------------------------------------------------
-
-#: The complex dtype a real state is promoted to.
-_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
-
-
-def _state_tensor(state, device) -> torch.Tensor:
-    """A complex tensor of ``state``: a tensor stays on its own device, a
-    numpy array (or anything else ``np.asarray`` takes) goes to ``device``."""
-    if isinstance(state, torch.Tensor):
-        x = state
-    else:
-        x = torch.as_tensor(np.ascontiguousarray(state), device=device)
-    if x.is_complex():
-        return x.resolve_conj()
-    if x.dtype not in _COMPLEX_OF:
-        raise TypeError(f"a state must be complex64/128 or float32/64, got {x.dtype}")
-    return x.to(_COMPLEX_OF[x.dtype])
-
-
-def _split(n: int, state, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fresh contiguous (R, C) (re, im) planes of a flat complex 2^n state,
-    from one read of it: the planes are the two halves of one new buffer,
-    so passes that update planes in place never reach the caller's state."""
-    x = _state_tensor(state, device)
-    if x.numel() != 1 << n:
-        raise ValueError(f"a state of {n} qubits has {1 << n} amplitudes, got {x.numel()}")
-    _, R, C = _geometry(n)
-    planes = torch.view_as_real(x.reshape(R, C)).permute(2, 0, 1).contiguous()
-    return planes[0], planes[1]
-
-
-def _join(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-    return torch.complex(re, im).reshape(-1)
-
-
-def as_vector(state) -> torch.Tensor:
-    """The flat view of a state (a numpy array becomes a CPU tensor)."""
-    return torch.as_tensor(state).reshape(-1)
-
-
-def as_tensor(state, n: int) -> torch.Tensor:
-    """The rank-n ``(2,) * n`` view of a state, qubit q on axis q (a numpy
-    array becomes a CPU tensor). Torch holds any rank, but some of its ops
-    refuse a tensor of more than 25 axes that they cannot coalesce (n = 28
-    is one)."""
-    return torch.as_tensor(state).reshape((2,) * n)
-
-
-def apply_op(n: int, op: MatrixOp, state, device="cuda") -> torch.Tensor:
-    """Apply one gate op to a flat 2^n complex state; returns a new flat
-    state and leaves ``state`` alone (the reference's
-    ``apply_op_overwrite``, qip-iterators/src/matrix_ops.rs:127, with zero
-    offsets). A tensor is computed on its own device, a numpy array on
-    ``device``. The state is split into (re, im) planes, run through
-    ``real_apply.apply_op_ri`` (the window kernel for a dense op on the
-    lane qubits and the row-swap kernel for a swap's row pairs, on a CUDA
-    float32 state) and joined."""
-    from rustqip_tpu_torch.engine.real_apply import apply_op_ri
-
-    return _join(*apply_op_ri(n, op, *_split(n, state, device)))
-
-
-def apply_op_add(n: int, op: MatrixOp, state, acc, device="cuda") -> torch.Tensor:
-    """``acc + op @ state``: the reference's accumulating ``apply_op``
-    (qip-iterators/src/matrix_ops.rs:98-123)."""
-    out = apply_op(n, op, state, device)
-    return _state_tensor(acc, out.device).reshape(-1) + out
-
-
-def apply_ops(n: int, ops: Sequence[MatrixOp], state, device="cuda") -> torch.Tensor:
-    """Apply ops in sequence (the reference's ``apply_ops``,
-    matrix_ops.rs:158): one split, ``real_apply.apply_ops_ri`` (strip-window
-    sweeps planned per call, the window kernel's on a CUDA float32 state),
-    one join. Ops are not fused here: ``fuse_ops`` does that ahead of
-    time."""
-    from rustqip_tpu_torch.engine.real_apply import apply_ops_ri
-
-    return _join(*apply_ops_ri(n, ops, *_split(n, state, device)))

@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from rustqip_tpu_torch.engine import relabel
-from rustqip_tpu_torch.engine.admission import for_device
-from rustqip_tpu_torch.engine.apply import _geometry
+from rustqip_tpu_torch.engine.admission import for_device, kernel_policy
 from rustqip_tpu_torch.engine.fusion import DEFAULT_MAX_FUSED_QUBITS, fuse_ops
 from rustqip_tpu_torch.engine.real_apply import (
     butterfly_eligible,
@@ -40,7 +39,7 @@ from rustqip_tpu_torch.ops.measurement_ops import (
     measure_probs_ri,
     sample_outcome,
 )
-from rustqip_tpu_torch.types import TORCH_REAL, real_dtype_of
+from rustqip_tpu_torch.types import TORCH_REAL, geometry, real_dtype_of
 from rustqip_tpu_torch.utils.observe import COUNTS, span
 
 
@@ -133,12 +132,9 @@ class CompiledCircuit:
         self.num_measurements = sum(
             1 for e in self.entries if isinstance(e, MeasureEntry)
         )
-        #: Whether unitary runs take the window kernel: by default the
-        #: circuit's policy (``_kernel_policy``); never for float64 (the JAX
-        #: package's rule).
-        if kernel_ok is None:
-            kernel_ok = self._kernel_policy()
-        self._kernel_ok = bool(kernel_ok) and self.rdtype == np.float32
+        #: Whether unitary runs take the kernels (``admission.kernel_policy``:
+        #: by default on CUDA; never for float64, the JAX package's rule).
+        self._kernel_ok = kernel_policy([self.device], TORCH_REAL[self.rdtype], kernel_ok)
         #: Kernel admission: the Hopper rules for a CUDA state, the
         #: reference's elsewhere. Fusion and planning read the same object.
         self.admission = for_device(self.device)
@@ -146,12 +142,6 @@ class CompiledCircuit:
             self.segments = self._plan(fuse, max_fused_qubits)
         with span("rq.compile.sweeps"):
             self.sweeps = [self._compile_segment(s) for s in self.segments]
-
-    def _kernel_policy(self) -> bool:
-        """Whether unitary runs may take the window kernel when the caller
-        does not say: a single-device circuit takes it on CUDA. Sharded
-        circuits override it (``parallel/``)."""
-        return self.device.type == "cuda"
 
     def _fusion_keep(self):
         """The butterfly keep-predicate window-aware fusion uses when the
@@ -268,7 +258,7 @@ class CompiledCircuit:
             raise CircuitError(
                 f"initial_index {initial_index} out of range for {self.n} qubits"
             )
-        _, R, C = _geometry(self.n)
+        _, R, C = geometry(self.n)
         row, col = divmod(initial_index, C)
         td = TORCH_REAL[self.rdtype]
         re = torch.zeros((R, C), dtype=td, device=self.device)
@@ -327,7 +317,7 @@ class CompiledCircuit:
             fmask, fvals, fpmask, fprobs = self._forced_arrays(
                 forced or {}, self.num_measurements
             )
-            _, R, C = _geometry(self.n)
+            _, R, C = geometry(self.n)
             with span("rq.run.input"):
                 if initial_state is not None:
                     arr = np.asarray(initial_state).reshape(R, C)

@@ -1,10 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""The one seam between the port and its CUDA kernels: build, load, type,
+check, launch and count.
 
 Every kernel is one source ``rustqip_tpu_torch/csrc/<name>.cu`` with a plain
 C interface. At first use it is compiled by nvcc with ``NVCC_FLAGS`` into a
 shared library under ``build/rustqip_tpu_torch/`` (listed in .gitignore),
 named by a hash of the source and the flags, and loaded with ctypes. Nothing
 is built when a module is imported: the CPU paths never reach nvcc.
+
+A kernel wrapper takes its typed entry point from ``function``, routes its
+planes with ``on_card`` (CPU planes to its plain version) and launches
+through ``launch``, which checks the CUDA error and counts the launch in
+``LAUNCHES``. Each entry point returns a CUDA error code and takes the
+stream last.
 """
 
 from __future__ import annotations
@@ -15,9 +22,12 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Build directory (listed in .gitignore), beside the package's checkout.
@@ -80,3 +90,75 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+#: The typed entry points loaded so far, by (source name, symbol). A tool
+#: may put a variant's function in place of one (``tools/tile_ab.py``).
+FUNCTIONS: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """``lib``'s entry point ``symbol``, typed: ``argtypes`` in, a CUDA
+    error code (``int``) out."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The typed entry point ``symbol`` of ``csrc/<name>.cu``, built, loaded
+    and typed at first use."""
+    fn = FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = FUNCTIONS[(name, symbol)] = bind(load(name), symbol, argtypes)
+    return fn
+
+
+#: Kernel launches, counted by ``launch`` and nowhere else (a reader takes
+#: differences, or zeroes it with ``reset_launch_counts``):
+#: ``window_sweep`` every launch of the window kernel, ``window_stream`` its
+#: register path's among them, ``row_swap`` and ``row_swap_cross`` the
+#: row-pair and the cross kernel of ``row_swap.cu``, ``plane_copy`` the copy
+#: kernel; ``KIND_PREFIX + kind`` the window launches whose program holds a
+#: step of that kind.
+LAUNCHES: Counter = Counter()
+KIND_PREFIX = "window_kind:"
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def on_card(kernel: str, *planes: torch.Tensor) -> bool:
+    """The plane check of every kernel wrapper: False for CPU planes (the
+    wrapper takes its plain version), True for CUDA planes that are
+    contiguous and 16-byte aligned. Raises ``ValueError`` for planes that do
+    not share one device and dtype, for any other device, and for CUDA
+    planes that are not contiguous or aligned."""
+    first = planes[0]
+    if any(x.device != first.device or x.dtype != first.dtype for x in planes):
+        raise ValueError(f"{kernel}: planes must share one device and dtype")
+    if first.device.type == "cpu":
+        return False
+    if first.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {first.device}")
+    if not all(x.is_contiguous() for x in planes):
+        raise ValueError(f"{kernel} takes contiguous planes")
+    if any(x.data_ptr() % 16 for x in planes):
+        raise ValueError(f"{kernel} needs 16-byte aligned planes")
+    return True
+
+
+def launch(kernel: str, fn: Callable[..., int], device, *args, also: Sequence[str] = ()) -> None:
+    """Call the entry point ``fn`` with ``args`` and ``device``'s current
+    stream, on ``device``. A non-zero return (a CUDA error) raises
+    ``RuntimeError`` naming ``kernel``; otherwise the launch counts in
+    ``LAUNCHES[kernel]`` and in each key of ``also``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+    for key in also:
+        LAUNCHES[key] += 1

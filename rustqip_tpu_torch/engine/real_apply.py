@@ -10,6 +10,14 @@ plain torch (the JAX package leaves them to XLA).
 
 ``compile_sweeps`` plans an op run once and encodes its kernel windows;
 ``run_sweeps`` executes such a plan. ``apply_ops_ri`` does both per call.
+
+The state-vector API at the end (``apply_op``, ``apply_op_add``,
+``apply_ops``, ``as_vector``, ``as_tensor``) takes flat complex states and
+runs them in the port's one execution domain, (re, im) planes of shape
+``(R, 128)`` in f32 or f64: one split, the plane engine, one join. The JAX
+package's two complex formulations behind the same names, the TPU-tiled
+``_apply_to_state`` and the CPU rank-n ``_t_apply``, are backend choices
+that the plane engine replaces, and are not carried over.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from rustqip_tpu_torch.engine.admission import (
     TPU_REFERENCE,
     WINDOW_MAX_OPS,
     for_device,
+    kernel_policy,
     thin_segment,
     window_seg_sizes,
 )
@@ -35,11 +44,9 @@ from rustqip_tpu_torch.engine.apply import (
     _control_mask_2d,
     _dense_plan,
     _fn_apply_planes,
-    _geometry,
     _mat_key,
     _phase_mul_ri,
     _phase_plan,
-    _row_segment_shape,
     _sparse_apply_planes,
     _swap_schedule,
 )
@@ -54,6 +61,13 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     SwapOp,
     expand_op_matrix,
     op_to_dense,
+)
+from rustqip_tpu_torch.types import (
+    geometry,
+    join_planes,
+    row_segment_shape,
+    split_state,
+    state_tensor,
 )
 from rustqip_tpu_torch.utils.observe import COUNTS, pass_bytes, span, swap_bytes
 
@@ -161,7 +175,7 @@ def _dense_ri(n: int, indices, mat: np.ndarray, re, im, low_kernel=True) -> Pair
 def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True, swap_kernel=True) -> Pair:
     if op.num_indices <= DENSE_CAP:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     # The select below reads the input again. Only an inner SwapOp whose row
     # pairs alone run the row-swap kernel (CUDA) updates its planes in place,
     # so only it gets copies; every other inner op returns fresh planes (the
@@ -211,7 +225,7 @@ def apply_op_ri(
     controlled op's inner op in its own, inside ``rq.op.control``), and a
     swap adds the bytes its permutation moves to
     ``observe.COUNTS["swap_bytes"]``."""
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     if isinstance(op, PhaseProductOp):
         with span("rq.op.phase"):
@@ -260,7 +274,7 @@ def _plan_of(n: int, op) -> "tuple | None":
         return _dense_plan(n, tuple(op.indices), _mat_key(op.data))
     if isinstance(op, PhaseProductOp):
         # A diagonal entirely on column qubits is a (C, C) diagonal matrix.
-        m, _, _ = _geometry(n)
+        m, _, _ = geometry(n)
         if op.indices and all(q >= n - m for q in op.indices):
             return _dense_plan(n, tuple(op.indices), _mat_key(op_to_dense(op)))
     return None
@@ -302,7 +316,7 @@ def _butterfly_ctrl_spec(n: int, n_m: int, op, rbf_max_bit: int) -> "tuple | Non
 def butterfly_eligible(n: int, op, admission=TPU_REFERENCE) -> bool:
     """Whether ``op`` will plan as a controlled in-block butterfly (fusion
     exempts such ops when the kernel path is active; ``real_apply``:332)."""
-    m, R, _ = _geometry(n)
+    m, R, _ = geometry(n)
     if R < admission.min_state_rows:
         return False
     n_m = n - m
@@ -321,7 +335,7 @@ def window_joint_ok(n: int, admission=TPU_REFERENCE):
     """The fusion joint predicate of the kernel path: joints capped to
     kernel-window-plannable shapes (``real_apply``:370). None when kernel
     windows cannot form at all."""
-    m, R, _ = _geometry(n)
+    m, R, _ = geometry(n)
     if R < admission.min_state_rows:
         return None
     n_m = n - m
@@ -347,7 +361,7 @@ def _window_diag_plan(n: int, op) -> "tuple | None":
 
 def _step_support(n: int, step) -> frozenset:
     """Qubit support of a collected window step (for commute checks)."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     kind = step[0]
     if kind in ("mix", "rmix"):
@@ -489,7 +503,7 @@ def _collect_window(
     """Greedy maximal run of dense ops executable as ONE strip sweep
     (``real_apply._collect_window``:575). Returns
     ``((H_sorted, steps), next_index)`` or ``(None, start)``."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     H: set = set()
     steps: List = []
@@ -625,7 +639,7 @@ def _collect_window(
 
 def _expand_blocks(n: int, hq, op, plan) -> dict:
     """An op's (j_op, i_op) blocks in window strip index space."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     blocks = plan[1]
     op_bits = [q for q in sorted(op.indices) if q < n - m]
     h = len(hq)
@@ -674,13 +688,13 @@ def _window_sweep_ri(n: int, window, re, im, low_kernel: bool = True) -> Pair:
     run as ``c64_low_matmul``, whose kernel ``low_kernel`` allows)."""
     hq, steps = window
     h = len(hq)
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     if h == 0:
         (_, B), = steps
         return window_kernel.c64_low_matmul(
             re.reshape(R, C), im.reshape(R, C), B, kernel=low_kernel
         )
-    seg_shape = _row_segment_shape(n, m, list(hq))
+    seg_shape = row_segment_shape(n, m, list(hq))
     strip, two_axes, strip_shape = _strips(seg_shape, h, C, re, im)
     strips = [strip(i) for i in range(1 << h)]
     for step in steps:
@@ -822,7 +836,7 @@ def run_sweeps(
     ``observe.COUNTS["window_plain"]`` and ``["window_plain_bytes"]``, a
     register-path window on a thin trailing row segment
     (``admission.thin_segment``) in ``["window_stream_thin"]``."""
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
         if kind == "kwindow":
@@ -854,14 +868,57 @@ def apply_ops_ri(
 ) -> Pair:
     """Apply ops in sequence with strip-window sweeps (plans per call).
 
-    ``kernel_ok`` defaults to "the planes are on CUDA" and is forced off
-    for float64 (the kernel is float32-only, as in the JAX package);
+    ``kernel_ok`` goes through ``admission.kernel_policy`` (by default on
+    for CUDA planes, always off for float64);
     ``admission`` defaults to the Hopper rules on CUDA and the
     reference's elsewhere. Kernel sweeps update the planes in place, so a
     caller that keeps its input passes a copy."""
-    if kernel_ok is None:
-        kernel_ok = re.is_cuda
-    kernel_ok = kernel_ok and re.dtype == torch.float32
+    kernel_ok = kernel_policy([re.device], re.dtype, kernel_ok)
     if admission is None:
         admission = for_device(re.device)
     return run_sweeps(n, compile_sweeps(n, ops, kernel_ok, admission), re, im)
+
+
+# ---------------------------------------------------------------------------
+# The state-vector API (L0): flat complex 2^n states in, new states out.
+# ---------------------------------------------------------------------------
+
+
+def as_vector(state) -> torch.Tensor:
+    """The flat view of a state (a numpy array becomes a CPU tensor)."""
+    return torch.as_tensor(state).reshape(-1)
+
+
+def as_tensor(state, n: int) -> torch.Tensor:
+    """The rank-n ``(2,) * n`` view of a state, qubit q on axis q (a numpy
+    array becomes a CPU tensor). Torch holds any rank, but some of its ops
+    refuse a tensor of more than 25 axes that they cannot coalesce (n = 28
+    is one)."""
+    return torch.as_tensor(state).reshape((2,) * n)
+
+
+def apply_op(n: int, op: MatrixOp, state, device="cuda") -> torch.Tensor:
+    """Apply one gate op to a flat 2^n complex state; returns a new flat
+    state and leaves ``state`` alone (the reference's
+    ``apply_op_overwrite``, qip-iterators/src/matrix_ops.rs:127, with zero
+    offsets). A tensor is computed on its own device, a numpy array on
+    ``device``. The state is split into (re, im) planes, run through
+    ``apply_op_ri`` (the window kernel for a dense op on the lane qubits
+    and the row-swap kernel for a swap's row pairs, on a CUDA float32
+    state) and joined."""
+    return join_planes(*apply_op_ri(n, op, *split_state(n, state, device)))
+
+
+def apply_op_add(n: int, op: MatrixOp, state, acc, device="cuda") -> torch.Tensor:
+    """``acc + op @ state``: the reference's accumulating ``apply_op``
+    (qip-iterators/src/matrix_ops.rs:98-123)."""
+    out = apply_op(n, op, state, device)
+    return state_tensor(acc, out.device).reshape(-1) + out
+
+
+def apply_ops(n: int, ops: Sequence[MatrixOp], state, device="cuda") -> torch.Tensor:
+    """Apply ops in sequence (the reference's ``apply_ops``,
+    matrix_ops.rs:158): one split, ``apply_ops_ri`` (strip-window sweeps
+    planned per call, the window kernel's on a CUDA float32 state), one
+    join. Ops are not fused here: ``fuse_ops`` does that ahead of time."""
+    return join_planes(*apply_ops_ri(n, ops, *split_state(n, state, device)))

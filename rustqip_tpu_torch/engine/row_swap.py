@@ -22,7 +22,6 @@ about it is written in the source.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -32,23 +31,16 @@ from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine.apply import (
     _cross_swap_applicable,
     _cross_swap_planes,
-    _geometry,
     _row_swap_planes,
 )
+from rustqip_tpu_torch.types import geometry
 
-#: Kernel launches, counted where each kernel launches and nowhere else:
-#: ``row_swap`` by ``row_swap``, ``row_swap_cross`` by ``cross_row_swap``.
-LAUNCHES: Counter = Counter()
 #: Pairs one launch takes (``RQ_MAX_PAIRS`` in the source).
 MAX_PAIRS = 31
 #: Pairs, cross and row, one cross launch takes (``RQ_CROSS_MAX_PAIRS``).
 CROSS_MAX_PAIRS = 64
 #: Lane bits of one segment of the cross kernel: lanes 0..31.
 SEG_BITS = 5
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
 
 
 def row_swap_reference(n: int, pairs, xr: torch.Tensor, xi: torch.Tensor):
@@ -59,7 +51,7 @@ def row_swap_reference(n: int, pairs, xr: torch.Tensor, xi: torch.Tensor):
 def _row_bit_pairs(n: int, pairs) -> Tuple[Tuple[int, int], ...]:
     """Qubit pairs -> (low, high) row-index bit pairs (qubit q is row bit
     ``n - m - 1 - q``), checked disjoint and on row qubits."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     out = []
     seen = set()
@@ -93,7 +85,7 @@ def cross_plan(n: int, cross, rowp) -> CrossPlan:
     ``apply._swap_schedule`` into cross pairs (row qubit, lane qubit) on the
     top row qubits and row pairs; raises ``ValueError`` on any other cross
     set or on pairs that are not disjoint."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     cross = tuple(sorted(tuple(p) for p in cross))
     lanes = {b for _, b in cross}
@@ -128,7 +120,7 @@ def parity_pair_sets(n: int):
     plain version on (n >= 14): QFT-n's row field, a reversal of up to 13
     row qubits, scattered pairs, a single pair, and a reversed field that
     reaches the last row bit."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     span = min(13, n_m)
     sets = [
@@ -148,7 +140,7 @@ def cross_pair_sets(n: int):
     a tile's segment spans (k = 3: lane bits 4, 6, 0, so a tile's row bits
     are not adjacent); ops with and without row pairs: QFT-n's reversal,
     and a QPE-like reversal of all qubits but the last."""
-    m, _, _ = _geometry(n)
+    m, _, _ = geometry(n)
     n_m = n - m
     return [
         ("k2_lane_bits_6_4", [(0, n_m), (1, n - 5)]),
@@ -159,29 +151,17 @@ def cross_pair_sets(n: int):
     ]
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("row_swap")
-        fn = lib.rq_row_swap
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.rq_cross_row_swap
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+#: The entry points of ``csrc/row_swap.cu`` and their argument types.
+ROW_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+CROSS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_longlong, ctypes.c_void_p,
+]
 
 
 def row_swap(n: int, pairs: Sequence[Tuple[int, int]], xr: torch.Tensor, xi: torch.Tensor):
@@ -190,35 +170,24 @@ def row_swap(n: int, pairs: Sequence[Tuple[int, int]], xr: torch.Tensor, xi: tor
     A CUDA state launches the kernel, in place on contiguous planes (a
     non-contiguous plane is made contiguous first), or raises; a CPU state
     takes ``row_swap_reference``."""
-    _, R, C = _geometry(n)
-    xr, xi = xr.reshape(R, C), xi.reshape(R, C)
+    _, R, C = geometry(n)
     bit_pairs = _row_bit_pairs(n, pairs)
-    if xr.device.type == "cpu":
+    xr, xi = xr.reshape(R, C).contiguous(), xi.reshape(R, C).contiguous()
+    if not cuda_build.on_card("row_swap", xr, xi):
         return row_swap_reference(n, pairs, xr, xi)
-    if xr.device.type != "cuda":
-        raise ValueError(f"row_swap: no kernel for device {xr.device}")
-    if xr.device != xi.device or xr.dtype != xi.dtype:
-        raise ValueError("row_swap: planes must share one device and dtype")
     if xr.dtype not in (torch.float32, torch.float64) or C != 128:
         raise TypeError(f"row_swap takes (R, 128) f32/f64 planes, got {xr.dtype}, C={C}")
     if len(bit_pairs) > MAX_PAIRS:
         raise ValueError(f"row_swap: {len(bit_pairs)} pairs > {MAX_PAIRS}")
     if not bit_pairs:
         return xr, xi
-    xr, xi = xr.contiguous(), xi.contiguous()
-    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
-        raise ValueError("row_swap needs 16-byte aligned planes")
     lo = np.array([p[0] for p in bit_pairs], dtype=np.int32)
     hi = np.array([p[1] for p in bit_pairs], dtype=np.int32)
-    with torch.cuda.device(xr.device):
-        err = _lib().rq_row_swap(
-            xr.data_ptr(), xi.data_ptr(), R, C * xr.element_size(), len(bit_pairs),
-            lo.ctypes.data, hi.ctypes.data,
-            torch.cuda.current_stream(xr.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"row_swap kernel launch failed: CUDA error {err}")
-    LAUNCHES["row_swap"] += 1
+    cuda_build.launch(
+        "row_swap", cuda_build.function("row_swap", "rq_row_swap", ROW_ARGTYPES), xr.device,
+        xr.data_ptr(), xi.data_ptr(), R, C * xr.element_size(), len(bit_pairs),
+        lo.ctypes.data, hi.ctypes.data,
+    )
     return xr, xi
 
 
@@ -232,31 +201,20 @@ def cross_row_swap(n: int, cross, rowp, xr: torch.Tensor, xi: torch.Tensor,
     a non-contiguous plane is made contiguous first), else into fresh
     planes, leaving the input as it was. A CPU state takes
     ``cross_row_swap_reference``."""
-    _, R, C = _geometry(n)
-    xr, xi = xr.reshape(R, C), xi.reshape(R, C)
+    _, R, C = geometry(n)
     plan = cross_plan(n, cross, rowp)
-    if xr.device.type == "cpu":
+    xr, xi = xr.reshape(R, C).contiguous(), xi.reshape(R, C).contiguous()
+    if not cuda_build.on_card("cross_row_swap", xr, xi):
         return cross_row_swap_reference(n, cross, rowp, xr, xi, inplace)
-    if xr.device.type != "cuda":
-        raise ValueError(f"cross_row_swap: no kernel for device {xr.device}")
-    if xr.device != xi.device or xr.dtype != xi.dtype:
-        raise ValueError("cross_row_swap: planes must share one device and dtype")
     if xr.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"cross_row_swap takes f32/f64 planes, got {xr.dtype}")
-    xr, xi = xr.contiguous(), xi.contiguous()
     yr, yi = (xr, xi) if inplace else (torch.empty_like(xr), torch.empty_like(xi))
-    if any(t.data_ptr() % 16 for t in (xr, xi, yr, yi)):
-        raise ValueError("cross_row_swap needs 16-byte aligned planes")
     lo, hi = (np.array([p[j] for p in plan.pairs], dtype=np.int32) for j in (0, 1))
     fbit, lbit = (np.array([s[j] for s in plan.slots] or [0], dtype=np.int32) for j in (0, 1))
-    with torch.cuda.device(xr.device):
-        err = _lib().rq_cross_row_swap(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), xr.element_size(),
-            len(plan.pairs), lo.ctypes.data, hi.ctypes.data, len(plan.slots),
-            fbit.ctypes.data, lbit.ctypes.data, plan.tiles, plan.units,
-            torch.cuda.current_stream(xr.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"cross_row_swap kernel launch failed: CUDA error {err}")
-    LAUNCHES["row_swap_cross"] += 1
+    cuda_build.launch(
+        "row_swap_cross", cuda_build.function("row_swap", "rq_cross_row_swap", CROSS_ARGTYPES),
+        xr.device, xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+        xr.element_size(), len(plan.pairs), lo.ctypes.data, hi.ctypes.data, len(plan.slots),
+        fbit.ctypes.data, lbit.ctypes.data, plan.tiles, plan.units,
+    )
     return yr, yi

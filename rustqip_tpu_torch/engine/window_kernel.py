@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -53,19 +52,6 @@ from rustqip_tpu_torch.engine.admission import (
 from rustqip_tpu_torch.types import MINOR_QUBITS
 
 _C = 1 << MINOR_QUBITS  # 128
-
-#: Kernel launches, counted by ``window_sweep`` where it launches and
-#: nowhere else (``reset_launch_counts`` zeroes both counters):
-#: ``"window_sweep"`` every launch of either path, ``"window_stream"`` the
-#: launches of the register-streaming path among them.
-LAUNCHES: Counter = Counter()
-#: Launches by step kind contained in the launched program.
-KIND_LAUNCHES: Counter = Counter()
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-    KIND_LAUNCHES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -823,6 +809,8 @@ def encode_window(n: int, seg_sizes, ksteps) -> WindowProgram:
 
 
 def _check_planes(n: int, xr: torch.Tensor, xi: torch.Tensor) -> None:
+    """The planes both versions take, on every device: contiguous float32
+    (R, 128) planes."""
     R = 1 << (n - MINOR_QUBITS)
     for x in (xr, xi):
         if x.dtype != torch.float32:
@@ -833,8 +821,6 @@ def _check_planes(n: int, xr: torch.Tensor, xi: torch.Tensor) -> None:
             )
         if not x.is_contiguous():
             raise ValueError("window_sweep takes contiguous planes")
-    if xr.device != xi.device:
-        raise ValueError("window_sweep planes must share one device")
 
 
 def _strip_views(prog: WindowProgram, x: torch.Tensor):
@@ -1035,41 +1021,17 @@ def window_sweep_reference(
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB = None
-_STREAM_LIB = None
-
-
-def _lib():
-    """The tile path's library (csrc/window_sweep.cu)."""
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("window_sweep")
-        fn = lib.rq_window_sweep
-        fn.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 11
-            + [ctypes.c_longlong] * 6
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _stream_lib():
-    """The register-streaming path's library (csrc/window_stream.cu)."""
-    global _STREAM_LIB
-    if _STREAM_LIB is None:
-        lib = cuda_build.load("window_stream")
-        fn = lib.rq_window_stream
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 8
-            + [ctypes.c_longlong, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _STREAM_LIB = lib
-    return _STREAM_LIB
+#: The entry points of the two paths and their argument types: the tile
+#: path's (csrc/window_sweep.cu) and the register path's
+#: (csrc/window_stream.cu).
+TILE_ENTRY = ("window_sweep", "rq_window_sweep")
+TILE_ARGTYPES = (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+)
+STREAM_ENTRY = ("window_stream", "rq_window_stream")
+STREAM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+#: ``cuda_build.LAUNCHES`` keys of the step kinds, by kind.
+_KIND_KEYS = {k: cuda_build.KIND_PREFIX + k for k in KINDS}
 
 
 def window_sweep(
@@ -1093,16 +1055,12 @@ def window_sweep(
         _check_planes(n, *out)
         if prog.out_mask != (1 << (1 << prog.h)) - 1 or prog.path != "tile":
             raise ValueError("window_sweep: out= needs a tile-path window that writes every strip")
-        if xr.device != out[0].device:
-            raise ValueError("window_sweep: out= planes must share the input's device")
-    if xr.device.type == "cpu":
+    if not cuda_build.on_card("window_sweep", xr, xi, *(out or ())):
         if out is not None:
             out[0].copy_(xr)
             out[1].copy_(xi)
             xr, xi = out
         return window_sweep_reference(n, xr, xi, seg_sizes, ksteps, prog=prog)
-    if xr.device.type != "cuda":
-        raise ValueError(f"window_sweep: no kernel for device {xr.device}")
     if not prog.out_mask:
         return xr, xi
     yr, yi = (xr, xi) if out is None else out
@@ -1122,35 +1080,26 @@ def window_sweep(
             f"rbf bit {prog.max_rbf_bit} does not fit a {prog.bt}-row tile "
             "(plan with HopperSmemAdmission)"
         )
-    if any(t.data_ptr() % 16 for t in (xr, xi, yr, yi)):
-        raise ValueError("window_sweep needs 16-byte aligned planes")
     iprog, fprog, bstream = prog.tensors(xr.device)
-    with torch.cuda.device(xr.device):
-        cuda_stream = torch.cuda.current_stream(xr.device).cuda_stream
-        if stream:
-            pos = _window_row_positions(prog.seg_sizes)
-            err = _stream_lib().rq_window_stream(
-                xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
-                prog.h, prog.nsteps, prog.in_mask, prog.out_mask,
-                *(pos + [0] * (4 - len(pos))), srows, cuda_stream,
-            )
-        else:
-            seg = list(prog.seg_sizes) + [1] * (5 - len(prog.seg_sizes))
-            err = _lib().rq_window_sweep(
-                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                iprog.data_ptr(), fprog.data_ptr(), bstream.data_ptr(), prog.h,
-                prog.nsteps, prog.bt, prog.group, prog.in_mask, prog.out_mask,
-                int(prog.scratch), prog.nstage, prog.stage_bytes, prog.chunk_tab,
-                prog.nchunks, *seg,
-                srows // (prog.bt * prog.group), cuda_stream,
-            )
-    if err:
-        raise RuntimeError(f"window_sweep kernel launch failed: CUDA error {err}")
-    LAUNCHES["window_sweep"] += 1
+    kinds = [_KIND_KEYS[k] for k in prog.kinds]
     if stream:
-        LAUNCHES["window_stream"] += 1
-    for k in prog.kinds:
-        KIND_LAUNCHES[k] += 1
+        pos = _window_row_positions(prog.seg_sizes)
+        cuda_build.launch(
+            "window_sweep", cuda_build.function(*STREAM_ENTRY, STREAM_ARGTYPES), xr.device,
+            xr.data_ptr(), xi.data_ptr(), iprog.data_ptr(), fprog.data_ptr(),
+            prog.h, prog.nsteps, prog.in_mask, prog.out_mask,
+            *(pos + [0] * (4 - len(pos))), srows, also=["window_stream"] + kinds,
+        )
+    else:
+        seg = list(prog.seg_sizes) + [1] * (5 - len(prog.seg_sizes))
+        cuda_build.launch(
+            "window_sweep", cuda_build.function(*TILE_ENTRY, TILE_ARGTYPES), xr.device,
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            iprog.data_ptr(), fprog.data_ptr(), bstream.data_ptr(), prog.h,
+            prog.nsteps, prog.bt, prog.group, prog.in_mask, prog.out_mask,
+            int(prog.scratch), prog.nstage, prog.stage_bytes, prog.chunk_tab,
+            prog.nchunks, *seg, srows // (prog.bt * prog.group), also=kinds,
+        )
     return yr, yi
 
 

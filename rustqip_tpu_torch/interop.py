@@ -13,7 +13,6 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine.apply import _split
 from rustqip_tpu_torch.ops.matrix_ops import (
     ControlOp,
     DenseOp,
@@ -24,6 +23,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     SparseOp,
     SwapOp,
 )
+from rustqip_tpu_torch.types import split_state
 
 
 def op_from_reference(op) -> MatrixOp:
@@ -74,9 +74,9 @@ def planes_from_numpy(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A flat complex 2^n state -> (R, C) (re, im) planes of ``dtype`` on
     ``device`` (the card unless the caller passes ``"cpu"``): the state
-    API's split (``engine.apply._split``), then the cast."""
+    API's split (``types.split_state``), then the cast."""
     state = np.asarray(state).reshape(-1)
-    re, im = _split(state.size.bit_length() - 1, state, device)
+    re, im = split_state(state.size.bit_length() - 1, state, device)
     return re.to(dtype), im.to(dtype)
 
 

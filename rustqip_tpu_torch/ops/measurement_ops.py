@@ -42,7 +42,7 @@ import torch
 
 from rustqip_tpu_torch import types as _types
 from rustqip_tpu_torch.errors import CircuitError
-from rustqip_tpu_torch.types import MINOR_QUBITS
+from rustqip_tpu_torch.types import fresh_plane, geometry, state_tensor
 from rustqip_tpu_torch.utils.bits import move_bits
 
 
@@ -54,18 +54,13 @@ class MeasuredCondition:
     prob: Optional[float] = None
 
 
-def _geometry(n: int) -> Tuple[int, int, int]:
-    m = min(n, MINOR_QUBITS)
-    return m, 1 << (n - m), 1 << m
-
-
 @lru_cache(maxsize=256)
 def _probs_plan(n: int, indices: Tuple[int, ...]):
     """Host-side plan: the column-reduction matrix, the weights that build
     the final outcome-order permutation (``_outcome_perm``), and the
     measured row and lane qubit counts. The row reduction is per block
     (``_block_plan``)."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     k = len(indices)
     srt = sorted(indices)
     h = sum(1 for q in srt if q < n - m)
@@ -100,17 +95,9 @@ def _check_indices(n: int, indices) -> Tuple[int, ...]:
     return indices
 
 
-def _state(state, device) -> torch.Tensor:
-    """``engine.apply._state_tensor``: a complex tensor of ``state`` on its
-    own device (a tensor) or on ``device`` (a numpy array)."""
-    from rustqip_tpu_torch.engine.apply import _state_tensor
-
-    return _state_tensor(state, device)
-
-
 def prob_magnitude(state, device="cuda") -> torch.Tensor:
     """Total |psi|^2 of a flat complex state (ref measurement_ops.rs:11)."""
-    x = torch.view_as_real(_state(state, device))
+    x = torch.view_as_real(state_tensor(state, device))
     return (x * x).sum()
 
 
@@ -122,7 +109,7 @@ def _block_plan(n: int, indices: Tuple[int, ...], rows: int):
     runs that are not measured (summed away), and the measured row qubits
     above the block, whose bits in the block's index say where its
     2^(h_in + l) partial sums go."""
-    n_m = n - _geometry(n)[0]
+    n_m = n - geometry(n)[0]
     b = rows.bit_length() - 1
     measured = set(indices)
     l = sum(1 for q in indices if q >= n_m)
@@ -173,8 +160,8 @@ def measure_probs(n: int, indices: Sequence[int], state, device="cuda") -> torch
     """Probability of every outcome of measuring ``indices`` on a flat
     complex state (ref measurement_ops.rs:115): shape (2^k,), entry m =
     P(qubit indices[i] == bit i of m)."""
-    _, R, C = _geometry(n)
-    x = _state(state, device).reshape(R, C)
+    _, R, C = geometry(n)
+    x = state_tensor(state, device).reshape(R, C)
     return _probs_blocked(n, _check_indices(n, indices), x.real, x.imag)
 
 
@@ -182,7 +169,7 @@ def measure_probs_ri(
     n: int, indices: Sequence[int], re: torch.Tensor, im: torch.Tensor
 ) -> torch.Tensor:
     """``measure_probs`` on (re, im) planes."""
-    _, R, C = _geometry(n)
+    _, R, C = geometry(n)
     return _probs_blocked(n, _check_indices(n, indices), re.reshape(R, C),
                           im.reshape(R, C))
 
@@ -363,7 +350,7 @@ def _collapse_(n: int, indices: Sequence[int], measured: Tuple[int, float], plan
     1/sqrt(prob), then the lanes and rows that miss are filled with 0.
     No (R, C) mask is built. ``prob == 0`` leaves them as they are (the
     reference's guard, measurement_ops.rs:230). Returns ``planes``."""
-    m, R, C = _geometry(n)
+    m, R, C = geometry(n)
     n_m = n - m
     scale = _collapse_scale(measured[1], planes[0].real.dtype)
     if scale is None:
@@ -394,12 +381,6 @@ def _collapse_(n: int, indices: Sequence[int], measured: Tuple[int, float], plan
     return planes
 
 
-def _fresh(x: torch.Tensor, R: int, C: int) -> torch.Tensor:
-    """A contiguous (R, C) copy of ``x``, for a pass that works in place
-    on a state its caller keeps."""
-    return x.reshape(R, C).clone(memory_format=torch.contiguous_format)
-
-
 def measure_state_ri(
     n: int,
     indices: Sequence[int],
@@ -411,8 +392,9 @@ def measure_state_ri(
     (ref measurement_ops.rs:220); ``prob == 0`` leaves the state as is
     (the reference's guard, :230). Returns fresh planes: the input is
     copied, then collapsed in place (``_collapse_``)."""
-    _, R, C = _geometry(n)
-    return tuple(_collapse_(n, indices, measured, [_fresh(re, R, C), _fresh(im, R, C)]))
+    _, R, C = geometry(n)
+    planes = [fresh_plane(re, R, C), fresh_plane(im, R, C)]
+    return tuple(_collapse_(n, indices, measured, planes))
 
 
 def _collapse_scale(prob, real_dtype: torch.dtype) -> Optional[float]:
@@ -434,8 +416,8 @@ def measure_state(
     outcome become 0, the others are scaled by 1/sqrt(prob), and
     ``prob == 0`` leaves the state as it is (:230). Returns a new flat
     state."""
-    _, R, C = _geometry(n)
-    x = _fresh(_state(state, device), R, C)
+    _, R, C = geometry(n)
+    x = fresh_plane(state_tensor(state, device), R, C)
     return _collapse_(n, indices, measured, [x])[0].reshape(-1)
 
 
@@ -492,7 +474,7 @@ def measure(
     ``measured`` forces the outcome (the ``MeasuredCondition`` path);
     otherwise ``generator`` (a CPU ``torch.Generator``, the JAX package's
     PRNG key) is required."""
-    x = _state(state, device)
+    x = state_tensor(state, device)
     outcome, prob = _draw(measure_probs(n, indices, x), generator, measured)
     return outcome, prob, measure_state(n, indices, (outcome, prob), x)
 

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine.apply import _geometry
+from rustqip_tpu_torch.engine.admission import kernel_policy
 from rustqip_tpu_torch.engine.compile import (
     CompiledCircuit,
     MeasureEntry,
@@ -36,7 +36,7 @@ from rustqip_tpu_torch.parallel.shard_ops import (
     _mesh_geometry,
     _shard_bit,
 )
-from rustqip_tpu_torch.types import TORCH_REAL
+from rustqip_tpu_torch.types import TORCH_REAL, geometry, real_dtype_of
 
 
 def _split_measured(g: int, indices):
@@ -92,7 +92,7 @@ def _collapse_over(g: int, n: int, indices, measured, re, im):
     louts = 0
     for j, (i_out, _) in enumerate(lmeas):
         louts |= ((outcome >> i_out) & 1) << j
-    _, R_l, C_l = _geometry(local_n)
+    _, R_l, C_l = geometry(local_n)
     out_r, out_i = [], []
     for my, (r, i) in enumerate(zip(re, im)):
         active = all(
@@ -147,6 +147,10 @@ class _ShardedCircuitBase(CompiledCircuit):
             raise CircuitError(
                 f"Need at least {g} qubits to shard over {mesh.size} devices"
             )
+        # Every shard holds a plain local (rows, 128) view, so shard-local
+        # runs take the kernels as one device would: the policy of the
+        # shard devices.
+        kernel_ok = kernel_policy(self._devices, TORCH_REAL[real_dtype_of(dtype)], kernel_ok)
         super().__init__(
             n, entries, dtype, fuse, max_fused_qubits, device=self._devices[0],
             kernel_ok=kernel_ok, check_norm=check_norm,
@@ -179,7 +183,7 @@ class _ShardedCircuitBase(CompiledCircuit):
                              self.rdtype)
 
     def _from_state(self, initial_state) -> tuple:
-        _, R_l, C_l = _geometry(self.n - self._g)
+        _, R_l, C_l = geometry(self.n - self._g)
         arr = np.asarray(initial_state).reshape(len(self._devices), R_l, C_l)
         td = TORCH_REAL[self.rdtype]
         re = [torch.as_tensor(np.ascontiguousarray(a.real), dtype=td).to(dev)
@@ -272,12 +276,6 @@ class ExplicitShardedCircuit(_ShardedCircuitBase):
         _, _, g = _mesh_geometry(mesh)
         super().__init__(n, entries, dtype, mesh, g, fuse, max_fused_qubits,
                          check_norm, kernel_ok)
-
-    def _kernel_policy(self) -> bool:
-        """Every shard holds a plain local (rows, 128) view, so shard-local
-        runs sweep it through the window kernel as one device would: on
-        when every shard lives on CUDA (float32 is checked by the base)."""
-        return all(d.type == "cuda" for d in self._devices)
 
     def _fusion_keep(self):
         """Butterfly keep-predicate in the shard-local qubit space: only

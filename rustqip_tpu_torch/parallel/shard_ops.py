@@ -40,12 +40,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine.admission import for_device
+from rustqip_tpu_torch.engine.admission import for_device, kernel_policy
 from rustqip_tpu_torch.engine.apply import (
     DENSE_CAP,
     _bit_runs,
     _control_mask_2d,
-    _geometry,
     _inverse_runs,
     _phase_mul_ri,
     _reflection_sum_2d,
@@ -68,7 +67,7 @@ from rustqip_tpu_torch.ops.matrix_ops import (
     make_swap_op,
     op_to_dense,
 )
-from rustqip_tpu_torch.types import TORCH_REAL
+from rustqip_tpu_torch.types import TORCH_REAL, geometry
 from rustqip_tpu_torch.utils.bits import move_bits
 
 Shards = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -403,8 +402,8 @@ def _full_index(n: int, g: int, my: int, r0: int, r1: int, device):
     local rows ``[r0, r1)``, as int64 tensors that broadcast to the block's
     (rows, C_local) shape."""
     local_n = n - g
-    _, R_l, C_l = _geometry(local_n)
-    m, _, C = _geometry(n)
+    _, R_l, C_l = geometry(local_n)
+    m, _, C = geometry(n)
     lr = torch.arange(r0, r1, dtype=torch.int64, device=device)
     lc = torch.arange(C_l, dtype=torch.int64, device=device)
     if C_l == C:
@@ -616,7 +615,7 @@ class ShardSchedule:
             raise CircuitError(
                 f"Expected {self.d} shards, got {len(re)} and {len(im)}"
             )
-        _, R_l, C_l = _geometry(self.local_n)
+        _, R_l, C_l = geometry(self.local_n)
         re = [x.reshape(R_l, C_l) for x in re]
         im = [x.reshape(R_l, C_l) for x in im]
         for _ in range(times):
@@ -626,7 +625,7 @@ class ShardSchedule:
 
     def _run_local(self, step, re, im):
         sweeps = step[1]
-        out = [run_sweeps(self.local_n, sweeps, r, i, self.kernel_ok)
+        out = [run_sweeps(self.local_n, sweeps, r, i, low_kernel=self.kernel_ok)
                for r, i in zip(re, im)]
         return [o[0] for o in out], [o[1] for o in out]
 
@@ -635,7 +634,7 @@ class ShardSchedule:
         re, im = list(re), list(im)
         for my in active:
             re[my], im[my] = run_sweeps(
-                self.local_n, sweeps, re[my], im[my], self.kernel_ok
+                self.local_n, sweeps, re[my], im[my], low_kernel=self.kernel_ok
             )
         return re, im
 
@@ -644,7 +643,7 @@ class ShardSchedule:
             v = blk[1]
             return xr * v.real - xi * v.imag, xr * v.imag + xi * v.real
         _, sub_n, sweeps = blk
-        return run_sweeps(sub_n, sweeps, xr, xi, self.kernel_ok)
+        return run_sweeps(sub_n, sweeps, xr, xi, low_kernel=self.kernel_ok)
 
     def _combine(self, terms, like):
         """Sum of block applications ``(block, re, im)``; zero blocks
@@ -683,7 +682,7 @@ class ShardSchedule:
                     else (chunked[0][0], chunked[0][1])
                 )
                 nc = 1 << self.kbits
-                _, Rs, Cs = _geometry(self.local_n - self.kbits)
+                _, Rs, Cs = geometry(self.local_n - self.kbits)
                 parts_r, parts_i = [], []
                 for c, (xr, xi, yr, yi) in enumerate(zip(
                     re[my].reshape(nc, Rs, Cs), im[my].reshape(nc, Rs, Cs),
@@ -729,7 +728,7 @@ class ShardSchedule:
     def _run_fndiag(self, step, re, im):
         fop = step[1]
         idt = _op_index_dtype(fop.num_indices)
-        _, R_l, C_l = _geometry(self.local_n)
+        _, R_l, C_l = geometry(self.local_n)
         new_r, new_i = [], []
         for my in range(self.d):
             r, i = re[my], im[my]
@@ -746,7 +745,7 @@ class ShardSchedule:
     def _run_reflect(self, step, re, im):
         _, groups, lidx, lctrl, scale = step
         local_n = self.local_n
-        _, R_l, C_l = _geometry(local_n)
+        _, R_l, C_l = geometry(local_n)
         re, im = list(re), list(im)
         for grp in groups:
             parts = [
@@ -794,8 +793,8 @@ class ShardSchedule:
         n, g, local_n = self.n, self.g, self.local_n
         k, h = len(indices), len(gq)
         idt = _op_index_dtype(k)
-        _, R_l, C_l = _geometry(local_n)
-        _, _, C = _geometry(n)
+        _, R_l, C_l = geometry(local_n)
+        _, _, C = geometry(n)
         row_runs, col_runs, row_mask, col_mask = _bit_runs(n, tuple(indices))
         to_row, to_col = _inverse_runs(row_runs), _inverse_runs(col_runs)
         # the XOR-flip deltas: every subset of the op's local bits
@@ -900,9 +899,7 @@ def apply_sharded_ops(
     shard's own (rows, 128) view; exchange recombinations stay on the
     plain path. ``chunks`` splits each single-global exchange into that
     many pieces along the top local qubits (see ``ShardSchedule``)."""
-    if kernel_ok is None:
-        kernel_ok = all(d.type == "cuda" for d in mesh.devices)
-    kernel_ok = bool(kernel_ok) and re[0].dtype == torch.float32
+    kernel_ok = kernel_policy(mesh.devices, re[0].dtype, kernel_ok)
     return compile_sharded_ops(mesh, n, ops, kernel_ok, chunks).run(re, im, times)
 
 
@@ -924,7 +921,7 @@ def _basis_shards(devices, n: int, g: int, initial_index: int, dtype) -> Shards:
             f"initial_index {initial_index} out of range for {n} qubits"
         )
     local_n = n - g
-    _, R_l, C_l = _geometry(local_n)
+    _, R_l, C_l = geometry(local_n)
     td = TORCH_REAL[np.dtype(dtype)]
     shard, rest = divmod(initial_index, 1 << local_n)
     row, col = divmod(rest, C_l)

@@ -42,15 +42,12 @@ class ShardedCircuit(_ShardedCircuitBase):
         check_norm: bool = False,
     ):
         _, g = _flat_geometry(mesh)
+        # Never the window kernel: the JAX package's GSPMD executor cannot
+        # shard a ``pallas_call``, and fusion then keeps plain greedy joints
+        # (the keep/joint exemptions only pay when kernel sweeps retire the
+        # exempted ops).
         super().__init__(n, entries, dtype, mesh, g, fuse, max_fused_qubits,
                          check_norm, kernel_ok=False)
-
-    def _kernel_policy(self) -> bool:
-        """Never the window kernel: the JAX package's GSPMD executor cannot
-        shard a ``pallas_call``, and fusion then keeps plain greedy joints
-        (the keep/joint exemptions only pay when kernel sweeps retire the
-        exempted ops)."""
-        return False
 
 
 _CACHE: Dict[tuple, ShardedCircuit] = {}

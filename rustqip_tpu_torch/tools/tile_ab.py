@@ -31,7 +31,10 @@ ROOT = Path(__file__).resolve().parents[2]
 
 
 def _build(out: Path, name: str, src: str):
+    """The tile path's entry point of ``src``, built and typed as the
+    checkout's is (``window_kernel.TILE_ARGTYPES``)."""
     from rustqip_tpu_torch.engine import cuda_build
+    from rustqip_tpu_torch.engine import window_kernel as wk
 
     cu, so = out / f"{name}.cu", out / f"{name}.so"
     cu.write_text(src)
@@ -39,12 +42,7 @@ def _build(out: Path, name: str, src: str):
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{res.stderr[-3000:]}")
-    lib = ctypes.CDLL(str(so))
-    fn = lib.rq_window_sweep
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return cuda_build.bind(ctypes.CDLL(str(so)), wk.TILE_ENTRY[1], wk.TILE_ARGTYPES)
 
 
 def main(argv) -> int:
@@ -54,6 +52,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from rustqip_tpu_torch.algos.phase_estimation import phase_estimate
+    from rustqip_tpu_torch.engine import cuda_build
     from rustqip_tpu_torch.engine import window_kernel as wk
     from rustqip_tpu_torch.engine.parity_windows import rand_u, real_orthogonal
 
@@ -69,7 +68,7 @@ def main(argv) -> int:
     out = ROOT / "build" / "tile_ab"
     out.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(srcs)) as pool:
-        libs = dict(zip(srcs, pool.map(lambda kv: _build(out, *kv), srcs.items())))
+        fns = dict(zip(srcs, pool.map(lambda kv: _build(out, *kv), srcs.items())))
 
     n, R = cs.N_MAIN, 1 << (cs.N_MAIN - 7)
     ccs = cs.compile_breakdown_circuits()
@@ -108,7 +107,7 @@ def main(argv) -> int:
     x /= x.norm()
     for name, (seg, ksteps, prog) in cases.items():
         prog = prog or wk.encode_window(n, seg, ksteps)
-        arms = [(v, prog) for v in libs]
+        arms = [(v, prog) for v in fns]
         if prog.nstage > 2:
             arms.append(("cur_nstage2", dataclasses.replace(prog, nstage=2, _dev={})))
         pr, pi = x[0].clone(), x[1].clone()
@@ -116,7 +115,7 @@ def main(argv) -> int:
         kr, ki = x[0].clone(), x[1].clone()
         row = {}
         for arm, p in arms + arms[::-1]:
-            wk._LIB = libs[arm.split("_nstage")[0]]
+            cuda_build.FUNCTIONS[wk.TILE_ENTRY] = fns[arm.split("_nstage")[0]]
             if arm not in row:
                 ar, ai = x[0].clone(), x[1].clone()
                 wk.window_sweep(n, ar, ai, seg, ksteps, prog=p)
@@ -131,7 +130,7 @@ def main(argv) -> int:
                           "group": prog.group, "ms": row}), flush=True)
         del pr, pi, kr, ki
         torch.cuda.empty_cache()
-    wk._LIB = None
+    cuda_build.FUNCTIONS.pop(wk.TILE_ENTRY, None)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Precision / dtype handling and bit-order representation.
+"""Precision / dtype handling, the plane format and bit-order representation.
 
 Port of ``rustqip_tpu/types.py`` without JAX. The reference parameterizes
 everything over a ``Precision`` trait covering f32/f64
@@ -10,13 +10,19 @@ everything over a ``Precision`` trait covering f32/f64
 
 The default precision is ``complex64``: the port has no global x64 switch
 to follow, so builders that need f64 ask for it (``dtype="f64"``).
+
+The plane format, a 2^n state as (re, im) planes of shape ``(R, 128)``, is
+defined here once and every layer reads it from here: ``geometry``,
+``row_segment_shape`` and the conversions between a flat complex state and
+its planes (``state_tensor``, ``split_state``, ``join_planes``,
+``fresh_plane``).
 """
 
 from __future__ import annotations
 
 import enum
 from fractions import Fraction
-from typing import Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +37,72 @@ MINOR_QUBITS = 7
 #: 32-qubit state (32 GiB of float32 planes) runs with little more than
 #: itself on an 80 GB card.
 PASS_BLOCK = 1 << 24
+
+
+# ---------------------------------------------------------------------------
+# The plane format: a 2^n state as (re, im) planes of shape (R, C)
+# ---------------------------------------------------------------------------
+
+
+def geometry(n: int) -> Tuple[int, int, int]:
+    """``(m, R, C)`` of a 2^n state's plane view: ``m`` lane qubits (the
+    last ``m`` qubits), ``R = 2^(n - m)`` rows of ``C = 2^m`` lanes."""
+    m = min(n, MINOR_QUBITS)
+    return m, 1 << (n - m), 1 << m
+
+
+def row_segment_shape(n: int, m: int, high: Sequence[int]) -> Tuple[int, ...]:
+    """Row-space shape exposing each high qubit as its own 2-axis:
+    (seg, 2, seg, 2, ..., seg)."""
+    shape: List[int] = []
+    prev = 0
+    for q in high:
+        shape.append(1 << (q - prev))
+        shape.append(2)
+        prev = q + 1
+    shape.append(1 << ((n - m) - prev))
+    return tuple(shape)
+
+
+#: The complex dtype a real state is promoted to.
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def state_tensor(state, device) -> torch.Tensor:
+    """A complex tensor of ``state``: a tensor stays on its own device, a
+    numpy array (or anything else ``np.asarray`` takes) goes to ``device``."""
+    if isinstance(state, torch.Tensor):
+        x = state
+    else:
+        x = torch.as_tensor(np.ascontiguousarray(state), device=device)
+    if x.is_complex():
+        return x.resolve_conj()
+    if x.dtype not in _COMPLEX_OF:
+        raise TypeError(f"a state must be complex64/128 or float32/64, got {x.dtype}")
+    return x.to(_COMPLEX_OF[x.dtype])
+
+
+def split_state(n: int, state, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fresh contiguous (R, C) (re, im) planes of a flat complex 2^n state,
+    from one read of it: the planes are the two halves of one new buffer,
+    so passes that update planes in place never reach the caller's state."""
+    x = state_tensor(state, device)
+    if x.numel() != 1 << n:
+        raise ValueError(f"a state of {n} qubits has {1 << n} amplitudes, got {x.numel()}")
+    _, R, C = geometry(n)
+    planes = torch.view_as_real(x.reshape(R, C)).permute(2, 0, 1).contiguous()
+    return planes[0], planes[1]
+
+
+def join_planes(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """The flat complex state of (re, im) planes."""
+    return torch.complex(re, im).reshape(-1)
+
+
+def fresh_plane(x: torch.Tensor, R: int, C: int) -> torch.Tensor:
+    """A contiguous (R, C) copy of ``x``, for a pass that works in place
+    on a state its caller keeps."""
+    return x.reshape(R, C).clone(memory_format=torch.contiguous_format)
 
 
 class Representation(enum.Enum):

@@ -40,8 +40,7 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-from rustqip_tpu_torch.engine.apply import _geometry
-from rustqip_tpu_torch.types import TORCH_REAL
+from rustqip_tpu_torch.types import TORCH_REAL, geometry
 
 #: The program's counts, kept whether or not a profiler runs (a reader
 #: takes their difference over its window): ``swap_bytes``, the bytes that
@@ -285,7 +284,7 @@ def _initial_pair(cc, seed):
     (the same planes for a seed on one device)."""
     if seed is None:
         return cc._one_hot(0)
-    _, R, C = _geometry(cc.n)
+    _, R, C = geometry(cc.n)
     gen = torch.Generator(device=cc.device).manual_seed(seed)
     x = torch.randn((2, R, C), generator=gen, device=cc.device,
                     dtype=TORCH_REAL[cc.rdtype])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import HopperSmemAdmission, window_seg_sizes
 from rustqip_tpu_torch.engine.parity_windows import (
@@ -53,7 +54,7 @@ def test_kernel_matches_plain_on_parity_windows(cuda, idx):
     name, ops, _ = PARITY[idx]
     n = 20
     x = planes_from_numpy(_state(n), device=cuda)
-    before = wk.LAUNCHES["window_sweep"]
+    before = cuda_build.LAUNCHES["window_sweep"]
     sweeps = compile_sweeps(n, ops, True, HopperSmemAdmission(), cuda)
     for kind, (seg, ksteps, prog), _ in sweeps:
         assert kind == "kwindow"
@@ -64,7 +65,7 @@ def test_kernel_matches_plain_on_parity_windows(cuda, idx):
         torch.cuda.synchronize()
         assert (a[0] - b[0]).abs().max().item() <= TOL
         assert (a[1] - b[1]).abs().max().item() <= TOL
-    assert wk.LAUNCHES["window_sweep"] == before + len(sweeps)
+    assert cuda_build.LAUNCHES["window_sweep"] == before + len(sweeps)
 
 
 @pytest.mark.parametrize("idx", range(len(STEP_WINDOWS)), ids=[w[0] for w in STEP_WINDOWS])
@@ -180,12 +181,12 @@ def test_register_path_matches_plain(cuda, idx):
     a = (x[0].clone(), x[1].clone())
     b = (x[0].clone(), x[1].clone())
     t = (x[0].clone(), x[1].clone())
-    before = wk.LAUNCHES["window_stream"]
+    before = cuda_build.LAUNCHES["window_stream"]
     wk.window_sweep(n, *a, seg, ksteps, prog=prog)
     wk.window_sweep(n, *t, seg, ksteps, prog=dataclasses.replace(prog, path="tile"))
     wk.window_sweep_reference(n, *b, seg, ksteps, prog=prog)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["window_stream"] == before + 1
+    assert cuda_build.LAUNCHES["window_stream"] == before + 1
     for k in range(2):
         assert (a[k] - b[k]).abs().max().item() <= TOL
         assert (a[k] - t[k]).abs().max().item() <= TOL

@@ -10,8 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from rustqip_tpu_torch.engine import copy_probe, row_swap
-from rustqip_tpu_torch.engine import window_kernel as wk
+from rustqip_tpu_torch.engine import cuda_build
 
 N = 20
 # The QFT's input register value, every bit set: the QFT applies each
@@ -68,11 +67,11 @@ def test_imported_circuit_on_cuda_matches_cpu(cuda, route):
         else:
             imp = serialize.builder_from_json(serialize.circuit_to_json(b), dtype="f32",
                                               device=device)
-        before = (wk.LAUNCHES["window_sweep"], row_swap.LAUNCHES["row_swap_cross"])
+        before = (cuda_build.LAUNCHES["window_sweep"], cuda_build.LAUNCHES["row_swap_cross"])
         states.append(imp.calculate_state(seed=0)[0])
         if device is cuda:
-            assert wk.LAUNCHES["window_sweep"] > before[0]
-            assert row_swap.LAUNCHES["row_swap_cross"] > before[1]
+            assert cuda_build.LAUNCHES["window_sweep"] > before[0]
+            assert cuda_build.LAUNCHES["row_swap_cross"] > before[1]
     assert np.abs(states[0] - states[1]).max() <= 1e-5
     want = _closed_form()
     assert max(np.abs(s - want).max() for s in states) <= 1e-6
@@ -125,9 +124,9 @@ def test_controlled_xor_oracle_takes_no_plane_copy(cuda):
         cb.apply_function_op(rx, ry, lambda x: ((5 * x + 3) % 256, 1))
         cb.dissolve()
         b.register(N - 17)
-        before = copy_probe.LAUNCHES["plane_copy"]
+        before = cuda_build.LAUNCHES["plane_copy"]
         states.append(b.calculate_state(seed=0)[0])
-        assert copy_probe.LAUNCHES["plane_copy"] == before
+        assert cuda_build.LAUNCHES["plane_copy"] == before
     assert np.abs(states[0] - states[1]).max() <= 1e-5
 
 

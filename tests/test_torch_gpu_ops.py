@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import copy_probe, row_swap
 from rustqip_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 
@@ -43,10 +44,10 @@ def test_row_swap_kernel_equals_plain(cuda, idx, dtype):
     n = 20
     x = planes_from_numpy(_state(n, 2), dtype=dtype, device=cuda)
     want = row_swap.row_swap_reference(n, pairs, *x)
-    before = row_swap.LAUNCHES["row_swap"]
+    before = cuda_build.LAUNCHES["row_swap"]
     got = row_swap.row_swap(n, pairs, x[0].clone(), x[1].clone())
     torch.cuda.synchronize()
-    assert row_swap.LAUNCHES["row_swap"] == before + 1
+    assert cuda_build.LAUNCHES["row_swap"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -63,10 +64,10 @@ def test_conditioned_wide_swap_on_cuda_matches_cpu(cuda):
     v = _state(n, 3)
     x = planes_from_numpy(v, device=cuda)
     x0 = (x[0].clone(), x[1].clone())
-    before = (row_swap.LAUNCHES["row_swap"], copy_probe.LAUNCHES["plane_copy"])
+    before = (cuda_build.LAUNCHES["row_swap"], cuda_build.LAUNCHES["plane_copy"])
     got = planes_to_numpy(*apply_op_ri(n, op, *x))
-    assert row_swap.LAUNCHES["row_swap"] == before[0] + 1
-    assert copy_probe.LAUNCHES["plane_copy"] == before[1] + 1
+    assert cuda_build.LAUNCHES["row_swap"] == before[0] + 1
+    assert cuda_build.LAUNCHES["plane_copy"] == before[1] + 1
     assert torch.equal(x[0], x0[0]) and torch.equal(x[1], x0[1])
     want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, device="cpu")))
     assert np.abs(got - want).max() == 0.0
@@ -83,10 +84,10 @@ def test_plane_copy_kernel_equals_copy(cuda, strips, inplace, numel):
     x = torch.randn((2, numel), generator=g, device=cuda)
     xr, xi = x[0].clone(), x[1].clone()
     out = (xr, xi) if inplace else None
-    before = copy_probe.LAUNCHES["plane_copy"]
+    before = cuda_build.LAUNCHES["plane_copy"]
     yr, yi = copy_probe.plane_copy(xr, xi, out=out, strips=strips)
     torch.cuda.synchronize()
-    assert copy_probe.LAUNCHES["plane_copy"] == before + 1
+    assert cuda_build.LAUNCHES["plane_copy"] == before + 1
     assert (yr.data_ptr() == xr.data_ptr()) == inplace
     assert torch.equal(yr, x[0]) and torch.equal(yi, x[1])
 
@@ -137,9 +138,9 @@ def test_oracle_ops_on_cuda_match_cpu(cuda, name):
     v = _state(n, 6)
     x = planes_from_numpy(v, device=cuda)
     x0 = (x[0].clone(), x[1].clone())
-    before = copy_probe.LAUNCHES["plane_copy"]
+    before = cuda_build.LAUNCHES["plane_copy"]
     got = planes_to_numpy(*apply_op_ri(n, op, *x))
-    assert copy_probe.LAUNCHES["plane_copy"] == before
+    assert cuda_build.LAUNCHES["plane_copy"] == before
     assert torch.equal(x[0], x0[0]) and torch.equal(x[1], x0[1])
     want = planes_to_numpy(*apply_op_ri(n, op, *planes_from_numpy(v, device="cpu")))
     assert np.abs(got - want).max() <= TOL

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from rustqip_tpu_torch.engine import window_kernel as wk
+from rustqip_tpu_torch.engine import cuda_build
 
 N = 20
 SHARDS = 4
@@ -61,11 +61,11 @@ def _sharded(strategy):
     b = LocalBuilder(dtype="f32", device="cuda")
     _circuit(b)
     torch.cuda.synchronize()
-    wk.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     re, im, _ = sharded_calculate_state(b, mesh=_mesh(), seed=0, strategy=strategy)
     torch.cuda.synchronize()
     assert len(re) == SHARDS and all(r.is_cuda for r in re)
-    return gather_state(re, im), wk.LAUNCHES["window_sweep"]
+    return gather_state(re, im), cuda_build.LAUNCHES["window_sweep"]
 
 
 def test_explicit_shards_launch_the_kernel_and_match_one_device(cuda):

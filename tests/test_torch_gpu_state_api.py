@@ -13,15 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import apply_op, apply_ops
 from rustqip_tpu_torch.engine import row_swap
 from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import HOPPER
-from rustqip_tpu_torch.engine.apply import _dense_plan, _join, _mat_key, _split, _swap_schedule
+from rustqip_tpu_torch.engine.apply import _dense_plan, _mat_key, _swap_schedule
 from rustqip_tpu_torch.engine.real_apply import compile_sweeps, run_sweeps
 from rustqip_tpu_torch.ops import MeasuredCondition, measure, measure_probs, prob_magnitude
 from rustqip_tpu_torch.ops.matrix_ops import SwapOp, make_matrix_op, make_swap_op
 from rustqip_tpu_torch.ops.measurement_ops import measure_probs_ri, measure_ri, measure_state_ri
+from rustqip_tpu_torch.types import join_planes, split_state
 
 N = 20
 TOL = 1e-6
@@ -46,11 +48,9 @@ def _state(device, seed=20):
 
 
 def _launches():
-    from rustqip_tpu_torch.engine import copy_probe
-
     torch.cuda.synchronize()
-    return (wk.LAUNCHES["window_sweep"], row_swap.LAUNCHES["row_swap"],
-            copy_probe.LAUNCHES["plane_copy"])
+    return (cuda_build.LAUNCHES["window_sweep"], cuda_build.LAUNCHES["row_swap"],
+            cuda_build.LAUNCHES["plane_copy"])
 
 
 def _diff(c, re, im):
@@ -81,7 +81,7 @@ def test_apply_ops_qft_launches_kernels_and_keeps_input(cuda):
     assert after[1] - before[1] == row_swaps > 0
     assert torch.equal(state, keep)
     before = _launches()
-    pr, pi = run_sweeps(N, compile_sweeps(N, ops, False, HOPPER), *_split(N, state, None),
+    pr, pi = run_sweeps(N, compile_sweeps(N, ops, False, HOPPER), *split_state(N, state, None),
                         low_kernel=False, swap_kernel=False)
     assert _launches() == before  # the plain path launches no kernel
     assert _diff(out, pr, pi) <= TOL
@@ -98,7 +98,7 @@ def test_lane_apply_op_is_one_low_matmul_launch(cuda):
     after = _launches()
     assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
     B = _dense_plan(N, lane.indices, _mat_key(lane.data))[1]
-    assert _diff(out, *wk.c64_low_matmul(*_split(N, state, None), B, kernel=False)) <= TOL
+    assert _diff(out, *wk.c64_low_matmul(*split_state(N, state, None), B, kernel=False)) <= TOL
 
 
 def test_row_pair_swap_apply_op_is_exact(cuda):
@@ -109,14 +109,15 @@ def test_row_pair_swap_apply_op_is_exact(cuda):
     out = apply_op(N, make_swap_op(*zip(*pairs)), state)
     after = _launches()
     assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
-    assert torch.equal(out, _join(*row_swap.row_swap_reference(N, pairs, *_split(N, state, None))))
+    want = row_swap.row_swap_reference(N, pairs, *split_state(N, state, None))
+    assert torch.equal(out, join_planes(*want))
     assert torch.equal(state, keep)
 
 
 def test_measurement_api_matches_planes(cuda):
     state = _state(cuda, 23)
     idx = list(range(2, 18))
-    re, im = _split(N, state, None)
+    re, im = split_state(N, state, None)
     probs_ri = measure_probs_ri(N, idx, re, im)
     probs = measure_probs(N, idx, state)
     assert ((probs - probs_ri).abs().max() / probs_ri.max()).item() <= TOL

@@ -13,6 +13,7 @@ from collections import Counter
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import row_swap
 from rustqip_tpu_torch.engine.apply import _cross_swap_planes, _row_swap_planes, _swap_schedule
 from rustqip_tpu_torch.engine.real_apply import apply_op_ri
@@ -63,12 +64,12 @@ def test_cross_kernel_equals_plain_passes(cuda, idx, dtype, inplace):
     want = _cross_swap_planes(N, cross, [xr, xi])
     if rowp:
         want = _row_swap_planes(N, rowp, want)
-    before = Counter(row_swap.LAUNCHES)
+    before = Counter(cuda_build.LAUNCHES)
     plain = observe.COUNTS["swap_cross_plain"]
     got = apply_op_ri(N, op, xr, xi, inplace=inplace)
     torch.cuda.synchronize()
-    assert row_swap.LAUNCHES["row_swap_cross"] == before["row_swap_cross"] + 1
-    assert row_swap.LAUNCHES["row_swap"] == before["row_swap"]
+    assert cuda_build.LAUNCHES["row_swap_cross"] == before["row_swap_cross"] + 1
+    assert cuda_build.LAUNCHES["row_swap"] == before["row_swap"]
     assert observe.COUNTS["swap_cross_plain"] == plain
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if inplace:
@@ -83,11 +84,11 @@ def test_row_only_swap_op_launches_the_row_kernel_once(cuda):
     pairs = [(j, 11 - j) for j in range(6)]
     xr, xi = _planes(torch.float32, cuda, 7)
     want = row_swap.row_swap_reference(N, pairs, xr, xi)
-    before = Counter(row_swap.LAUNCHES)
+    before = Counter(cuda_build.LAUNCHES)
     got = apply_op_ri(N, _swap_op(pairs), xr.clone(), xi.clone())
     torch.cuda.synchronize()
-    assert row_swap.LAUNCHES["row_swap"] == before["row_swap"] + 1
-    assert row_swap.LAUNCHES["row_swap_cross"] == before["row_swap_cross"]
+    assert cuda_build.LAUNCHES["row_swap"] == before["row_swap"] + 1
+    assert cuda_build.LAUNCHES["row_swap_cross"] == before["row_swap_cross"]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -109,12 +110,12 @@ def test_lone_cross_pair_is_counted_as_a_plain_fallback(cuda):
     op's bit swaps (the dense pass multiplies)."""
     pairs = [(0, N - 1), (2, 9), (3, 8)]
     xr, xi = _planes(torch.float32, cuda, 8)
-    before = Counter(row_swap.LAUNCHES)
+    before = Counter(cuda_build.LAUNCHES)
     plain = observe.COUNTS["swap_cross_plain"]
     got = apply_op_ri(N, _swap_op(pairs), xr.clone(), xi.clone())
     torch.cuda.synchronize()
     assert observe.COUNTS["swap_cross_plain"] == plain + 1
-    assert row_swap.LAUNCHES["row_swap"] == before["row_swap"] + 1
-    assert row_swap.LAUNCHES["row_swap_cross"] == before["row_swap_cross"]
+    assert cuda_build.LAUNCHES["row_swap"] == before["row_swap"] + 1
+    assert cuda_build.LAUNCHES["row_swap_cross"] == before["row_swap_cross"]
     for g, x in zip(got, (xr, xi)):
         assert (g.reshape(x.shape) - _bit_swaps(pairs, x)).abs().max().item() <= 1e-6

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import HOPPER, thin_segment, window_seg_sizes
 from rustqip_tpu_torch.engine.compile import MeasureEntry
@@ -75,12 +76,12 @@ def test_dense_mix_on_a_thin_segment(cuda, h, below):
     x = _planes(cuda, below + h)
     a = (x[0].clone(), x[1].clone())
     b = (x[0].clone(), x[1].clone())
-    before = dict(wk.LAUNCHES)
+    before = dict(cuda_build.LAUNCHES)
     wk.window_sweep(N, *a, seg, ksteps, prog=prog)
     wk.window_sweep_reference(N, *b, seg, ksteps, prog=prog)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["window_stream"] == before.get("window_stream", 0) + 1
-    assert wk.LAUNCHES["window_sweep"] == before.get("window_sweep", 0) + 1
+    assert cuda_build.LAUNCHES["window_stream"] == before.get("window_stream", 0) + 1
+    assert cuda_build.LAUNCHES["window_sweep"] == before.get("window_sweep", 0) + 1
     assert (a[0] - b[0]).abs().max().item() <= TOL
     assert (a[1] - b[1]).abs().max().item() <= TOL
 
@@ -113,10 +114,10 @@ def test_lane_matmul_on_a_state_under_one_tile(cuda, n):
     assert x[0].shape[0] == 1 << (n - 7) < HOPPER.MIN_TILE_ROWS
     keep = (x[0].clone(), x[1].clone())
     B = rand_u(7, 73 + n)
-    before = wk.LAUNCHES["window_sweep"]
+    before = cuda_build.LAUNCHES["window_sweep"]
     got = wk.c64_low_matmul(*x, B)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["window_sweep"] == before + 1
+    assert cuda_build.LAUNCHES["window_sweep"] == before + 1
     assert torch.equal(x[0], keep[0]) and torch.equal(x[1], keep[1])
     want = wk.c64_low_matmul(*x, B, kernel=False)
     assert (got[0] - want[0]).abs().max().item() <= TOL
@@ -140,11 +141,11 @@ def test_compiled_qv20_matches_the_reference(cuda):
     stream = sum(1 for _, _, prog in kernel if prog.path == "registers")
     assert thin > 0
     counted = observe.COUNTS["window_stream_thin"]
-    launched = wk.LAUNCHES["window_stream"]
+    launched = cuda_build.LAUNCHES["window_stream"]
     re, im, _ = cc.run(0)
     torch.cuda.synchronize()
     assert observe.COUNTS["window_stream_thin"] - counted == thin
-    assert wk.LAUNCHES["window_stream"] - launched == stream
+    assert cuda_build.LAUNCHES["window_stream"] - launched == stream
     got = re.double().cpu().reshape(-1).numpy() + 1j * im.double().cpu().reshape(-1).numpy()
     want = qv.state(N, qv.circuit(cfg, {"circuit_seed": seed})).numpy()
     gap = np.abs(got - want).max() * 2.0 ** (N / 2)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine import window_kernel as wk
 from rustqip_tpu_torch.engine.admission import window_seg_sizes
 from rustqip_tpu_torch.engine.parity_windows import rand_u, tile_windows
@@ -74,12 +75,12 @@ def test_tile_window_matches_plain(cuda, name):
     x = _planes(cuda, NAMES.index(name))
     a = (x[0].clone(), x[1].clone())
     b = (x[0].clone(), x[1].clone())
-    before = wk.LAUNCHES["window_sweep"]
+    before = cuda_build.LAUNCHES["window_sweep"]
     prog, _ = _run(_windows()[name], a)
     assert prog.path == "tile" and set(prog.kinds) == kinds
     wk.window_sweep_reference(N, *b, window_seg_sizes(N, hq), ksteps, prog=prog)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["window_sweep"] == before + 1
+    assert cuda_build.LAUNCHES["window_sweep"] == before + 1
     assert (a[0] - b[0]).abs().max().item() <= TOL
     assert (a[1] - b[1]).abs().max().item() <= TOL
 
@@ -116,10 +117,10 @@ def test_c64_low_matmul_leaves_its_input(cuda):
     x = _planes(cuda, 60)
     keep = (x[0].clone(), x[1].clone())
     B = rand_u(7, 61)
-    before = wk.LAUNCHES["window_sweep"]
+    before = cuda_build.LAUNCHES["window_sweep"]
     yr, yi = wk.c64_low_matmul(*x, B)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["window_sweep"] == before + 1
+    assert cuda_build.LAUNCHES["window_sweep"] == before + 1
     assert yr.data_ptr() != x[0].data_ptr()
     assert torch.equal(x[0], keep[0]) and torch.equal(x[1], keep[1])
     pr, pi = wk.c64_low_matmul(*x, B, kernel=False)

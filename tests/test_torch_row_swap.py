@@ -27,7 +27,7 @@ from rustqip_tpu.ops import matrix_ops as R  # noqa: E402
 
 from rustqip_tpu_torch.engine import apply as port_apply_mod  # noqa: E402
 from rustqip_tpu_torch.engine import real_apply as port_real  # noqa: E402
-from rustqip_tpu_torch.engine import copy_probe, row_swap  # noqa: E402
+from rustqip_tpu_torch.engine import copy_probe, cuda_build, row_swap  # noqa: E402
 from rustqip_tpu_torch.engine.real_apply import apply_op_ri  # noqa: E402
 from rustqip_tpu_torch.interop import (  # noqa: E402
     op_from_reference,
@@ -110,8 +110,7 @@ def test_conditioned_wide_swap_matches_jax(prec):
 
 
 def test_nothing_is_launched_on_the_cpu():
-    row_swap.reset_launch_counts()
-    copy_probe.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     n = 14
     xr, xi = (torch.from_numpy(p) for p in _planes(n, 3))
     row_swap.row_swap(n, [(0, 6), (1, 5)], xr, xi)
@@ -122,8 +121,7 @@ def test_nothing_is_launched_on_the_cpu():
     op = op_from_reference(R.make_control_op([0], R.make_swap_op([1, 2, 3, 4, 5, 6],
                                                                  [7, 8, 9, 10, 11, 12])))
     apply_op_ri(n, op, xr, xi)
-    assert sum(row_swap.LAUNCHES.values()) == 0
-    assert sum(copy_probe.LAUNCHES.values()) == 0
+    assert sum(cuda_build.LAUNCHES.values()) == 0
 
 
 def test_bad_pair_sets_raise():

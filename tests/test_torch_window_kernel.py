@@ -18,6 +18,7 @@ import torch  # noqa: E402
 from rustqip_tpu.engine import pallas_kernels as ref_pk  # noqa: E402
 from rustqip_tpu.engine import real_apply as ref_ra  # noqa: E402
 
+from rustqip_tpu_torch.engine import cuda_build  # noqa: E402
 from rustqip_tpu_torch.engine import window_kernel as wk  # noqa: E402
 from rustqip_tpu_torch.engine.admission import (  # noqa: E402
     HopperSmemAdmission,
@@ -240,10 +241,10 @@ def test_wrapper_cpu_contract():
     v = _state(n, 3)
     a = planes_from_numpy(v, device="cpu")
     b = planes_from_numpy(v, device="cpu")
-    before = dict(wk.LAUNCHES)
+    before = dict(cuda_build.LAUNCHES)
     wk.window_sweep(n, *a, seg, ksteps)
     wk.window_sweep_reference(n, *b, seg, ksteps)
-    assert dict(wk.LAUNCHES) == before
+    assert dict(cuda_build.LAUNCHES) == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(TypeError):
         wk.window_sweep(n, *planes_from_numpy(v, dtype=torch.float64, device="cpu"), seg, ksteps)
