@@ -43,6 +43,24 @@ _C = 128
 STREAM_KINDS = frozenset({"mix", "diag", "cmix"})
 
 
+#: Row-support groups a diag entry holds as lane-vector factors; above it
+#: the entry holds angles and the kernel takes one sincos per element (the
+#: JAX package's ``_diag_mask_max`` default, pallas_kernels.py:29).
+DIAG_MASK_MAX = 4
+
+
+def diag_angle_mode(hq, groups) -> bool:
+    """Whether a collected ``diag`` step (its monomial groups) in a window
+    on row qubits ``hq`` takes angle mode in some strip: more than
+    ``DIAG_MASK_MAX`` distinct row supports among its mixed monomials once
+    the window qubits are fixed. The strip with every window bit 1 keeps
+    the most; ``window_kernel.encode_window`` counts them strip by strip."""
+    win = set(hq)
+    supports = {tuple(q for q in rq if q not in win) for rq, _cq, _c in groups[3]}
+    supports.discard(())
+    return len(supports) > DIAG_MASK_MAX
+
+
 def takes_registers(kinds) -> bool:
     """Whether a window whose steps are of ``kinds`` takes the register
     path: the one rule ``encode_window`` (kernel steps) and
@@ -106,6 +124,9 @@ class TpuReferenceAdmission:
     #: Lowest row bit a fused joint may touch (64-row blocks need the
     #: trailing segment to hold 2^6 rows).
     min_joint_row_bit = 6
+    #: A diagonal with a log-magnitude group never becomes a window's
+    #: ``diag`` step (``real_apply._window_diag_plan``:395).
+    diag_mag_max = None
 
     BLOCK_ROWS = 512
     WINDOW_VMEM_CEIL = 100 * 1024 * 1024
@@ -203,7 +224,15 @@ class HopperSmemAdmission:
     8-row minimum binds only windows that take the tile path: a window of
     strip-local steps takes the register path, whose warps each take one
     strip-local row wherever the window bits fall, and is admitted whatever
-    its trailing row segment."""
+    its trailing row segment.
+
+    A ``diag`` step in angle mode (``diag_angle_mode``) takes only a window
+    of h = 0. Each strip of a wider window keeps its own entry of lane
+    angles, one part per group, and the kernel reads a part for every
+    group whose row mask holds at every element: on an H100 80GB HBM3 at
+    n = 28, QPE-28's phase product (17 groups a strip) took 4.8 ms as a
+    step of an h = 4 tile window and 4.2 ms of an h = 4 register window,
+    and 1.7 ms as a window of its own."""
 
     name = "hopper_smem"
     #: A 1-strip tile holds 128 rows, so row butterflies reach bit 6.
@@ -213,6 +242,17 @@ class HopperSmemAdmission:
     min_joint_row_bit = 3
     #: Smallest tile worth a launch: 8 rows per strip.
     MIN_TILE_ROWS = 8
+    #: Largest sum of the absolute coefficients of a diagonal's
+    #: log-magnitude group that a window's ``diag`` step leaves out (it
+    #: carries the angle group alone). At each index the log-magnitude x
+    #: is a sum of some of those coefficients, so |x| <= 2^-26. exp(x)
+    #: rounds to exactly 1.0f for |x| < 2^-25, the half-ulp of float32
+    #: below 1.0 (above it the half-ulp is 2^-24), and the factor 2 between
+    #: the two covers the float32 evaluation of the sum. The window kernel
+    #: takes float32 planes alone (``window_kernel.window_sweep``), so the
+    #: step computes what the plain float32 pass, whose magnitude factor
+    #: is then 1.0f, computes.
+    diag_mag_max = 2.0 ** -26
 
     def block_rows(self, h: int, steps, seg_last: int) -> int:
         return hopper_tile_rows(
@@ -234,6 +274,8 @@ class HopperSmemAdmission:
         if rbf_bits and (1 << (max(rbf_bits) + 1)) > bt:
             return False
         if n_low + n_rmix_mats > WINDOW_KERNEL_MAX_LOW:
+            return False
+        if h and any(s[0] == "diag" and diag_angle_mode(hq, s[1]) for s in steps):
             return False
         return _worth_it(h, n_low, n_diag, n_cbf, len(rbf_bits), n_rmix, n_mix)
 

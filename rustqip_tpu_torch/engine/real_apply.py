@@ -352,9 +352,38 @@ def window_joint_ok(n: int, admission=TPU_REFERENCE):
     return joint_ok
 
 
-def _window_diag_plan(n: int, op) -> "tuple | None":
+def _abs_coeff_sum(groups) -> float:
+    """Sum of the absolute coefficients of one monomial group set."""
+    const, row_monos, col_monos, mixed = groups
+    return (
+        abs(const)
+        + sum(abs(c) for _, c in row_monos)
+        + sum(abs(c) for _, c in col_monos)
+        + sum(abs(c) for _, _, c in mixed)
+    )
+
+
+def _mag_rounded(n: int, op, diag_mag_max: "float | None") -> bool:
+    """Whether ``op`` is a PhaseProductOp that a window takes as a diag
+    step (``_plan_of`` gives it no matrix) leaving out its log-magnitude
+    group, which ``diag_mag_max`` (the admission's) bounds."""
+    if not isinstance(op, PhaseProductOp) or _plan_of(n, op) is not None:
+        return False
+    mag_g = _phase_plan(n, op.terms)[1]
+    return (
+        mag_g is not None
+        and diag_mag_max is not None
+        and _abs_coeff_sum(mag_g) <= diag_mag_max
+    )
+
+
+def _window_diag_plan(n: int, op, diag_mag_max: "float | None" = None) -> "tuple | None":
+    """A PhaseProductOp as a window's diag step: its angle group, or None.
+    A log-magnitude group refuses the step unless ``_mag_rounded``."""
     angle_g, mag_g = _phase_plan(n, op.terms)
-    if mag_g is not None or len(angle_g[3]) > WINDOW_DIAG_MIXED_CAP:
+    if len(angle_g[3]) > WINDOW_DIAG_MIXED_CAP:
+        return None
+    if mag_g is not None and not _mag_rounded(n, op, diag_mag_max):
         return None
     return angle_g
 
@@ -499,6 +528,7 @@ def _collect_window(
     allow_diag: bool = False,
     snapshot=None,
     rbf_max_bit: int = TPU_REFERENCE.rbf_max_bit,
+    diag_mag_max: "float | None" = TPU_REFERENCE.diag_mag_max,
 ):
     """Greedy maximal run of dense ops executable as ONE strip sweep
     (``real_apply._collect_window``:575). Returns
@@ -565,7 +595,7 @@ def _collect_window(
         p = _plan_of(n, op)
         if p is None:
             if allow_diag and isinstance(op, PhaseProductOp):
-                dplan = _window_diag_plan(n, op)
+                dplan = _window_diag_plan(n, op, diag_mag_max)
                 if dplan is not None:
                     flush()
                     steps.append(("diag", dplan))
@@ -760,6 +790,7 @@ def plan_sweeps(
                 window, j = _collect_window(
                     n, ops, i, max_h=mh, allow_diag=True, snapshot=snap,
                     rbf_max_bit=admission.rbf_max_bit,
+                    diag_mag_max=admission.diag_mag_max,
                 )
                 if window is None:
                     continue
@@ -813,6 +844,9 @@ def compile_sweeps(
             seg = tuple(window_seg_sizes(n, hq))
             ksteps = window_ksteps(n, hq, steps)
             prog = window_kernel.encode_window(n, seg, ksteps)
+            prog.mag_rounded = any(
+                _mag_rounded(n, op, admission.diag_mag_max) for op in run
+            )
             if device is not None and torch.device(device).type == "cuda":
                 prog.tensors(device)
             payload = (seg, ksteps, prog)
@@ -835,7 +869,9 @@ def run_sweeps(
     ``rq.sweep.window``; a plain strip window (h >= 1) is counted in
     ``observe.COUNTS["window_plain"]`` and ``["window_plain_bytes"]``, a
     register-path window on a thin trailing row segment
-    (``admission.thin_segment``) in ``["window_stream_thin"]``."""
+    (``admission.thin_segment``) in ``["window_stream_thin"]``, a kernel
+    window whose diag steps left out a log-magnitude that rounds to 1 in
+    float32 (``WindowProgram.mag_rounded``) in ``["diag_mag_rounded"]``."""
     _, R, C = geometry(n)
     re, im = re.reshape(R, C), im.reshape(R, C)
     for kind, payload, _run in sweeps:
@@ -843,6 +879,8 @@ def run_sweeps(
             seg, ksteps, prog = payload
             if prog.path == "registers" and thin_segment(seg):
                 COUNTS["window_stream_thin"] += 1
+            if prog.mag_rounded:
+                COUNTS["diag_mag_rounded"] += 1
             with span("rq.sweep.kernel"):
                 re, im = window_kernel.window_sweep(
                     n, re.contiguous(), im.contiguous(), seg, ksteps, prog=prog

@@ -42,6 +42,7 @@ import torch
 
 from rustqip_tpu_torch.engine import cuda_build
 from rustqip_tpu_torch.engine.admission import (
+    DIAG_MASK_MAX,
     HOPPER_SMEM_BYTES,
     HOPPER_SMEM_HEADER,
     STREAM_KINDS,  # noqa: F401  (the path rule's kinds, named here too)
@@ -301,10 +302,6 @@ _REC = 8
 #: coefficient v: 1 passes the input through, a real or a pure-imaginary v
 #: takes two products, any other v four (v == 0 is dropped).
 T_ONE, T_REAL, T_IMAG, T_CPLX = range(4)
-#: Row-support groups a diag entry holds as lane-vector factors; above it
-#: the entry holds angles and the kernel takes one sincos per element (the
-#: JAX package's ``_diag_mask_max`` default, pallas_kernels.py:29).
-DIAG_MASK_MAX = 4
 #: Per-strip diag entry: (int offset, float offset, nr, G, angle mode,
 #: float offset of the lane parts).
 _DIAG_ENT = 6
@@ -405,6 +402,10 @@ class WindowProgram:
     #: program with ``path="tile"`` (``dataclasses.replace``) runs the same
     #: program on the tile path: the A/B of ``chip_smoke.py``.
     path: str = "tile"
+    #: Whether a diag step leaves out a diagonal's log-magnitude, which
+    #: rounds to 1 in float32 (``HopperSmemAdmission.diag_mag_max``; set
+    #: by ``real_apply.compile_sweeps``, counted by ``run_sweeps``).
+    mag_rounded: bool = False
     _dev: Dict[str, tuple] = field(default_factory=dict, repr=False)
 
     @property

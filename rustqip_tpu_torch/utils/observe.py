@@ -55,6 +55,9 @@ from rustqip_tpu_torch.types import TORCH_REAL, geometry
 #: windows run on the register path whose trailing row segment is under
 #: the tile path's smallest tile (``admission.thin_segment``), which the
 #: H100's admission takes only because they hold no tile;
+#: ``diag_mag_rounded``, the kernel windows run whose diag steps left out
+#: a diagonal's log-magnitude that rounds to 1 in float32
+#: (``HopperSmemAdmission.diag_mag_max``);
 #: ``circuit_runs``, the runs of a ``CompiledCircuit``.
 COUNTS: Counter = Counter()
 

@@ -149,6 +149,7 @@ def test_qv28_plan_on_the_h100(monkeypatch, pairs_seed):
             sum(1 for _, _, prog in kernel if prog.path == "registers"),
             len(thin), counts["window"]) == QV28_PLANS[pairs_seed]
     assert counts["op"] == 0
+    assert not any(prog.mag_rounded for _, _, prog in kernel)
     for hq, steps in plain:
         assert set(hq) & {n - 10, n - 9, n - 8}, hq
         assert HOPPER.block_rows(len(hq), steps, window_seg_sizes(n, hq)[-1]) \
@@ -156,21 +157,26 @@ def test_qv28_plan_on_the_h100(monkeypatch, pairs_seed):
         assert any(s[0] == "rmix" for s in steps), steps
 
 
-@pytest.mark.parametrize("config, circuit, params, kernel, ops", [
-    ("qft32", qft_circuit, {}, 7, 1),
-    ("qpe28", qpe_circuit, {"phase_int": (1 << 26) + 12345}, 10, 3),
+@pytest.mark.parametrize("config, circuit, params, kernel, ops, rounded", [
+    ("qft32", qft_circuit, {}, 7, 1, 0),
+    ("qpe28", qpe_circuit, {"phase_int": (1 << 26) + 12345}, 11, 2, 1),
 ], ids=["qft32", "qpe28"])
-def test_qft32_and_qpe28_plan_no_thin_window(monkeypatch, config, circuit, params, kernel, ops):
+def test_qft32_and_qpe28_plan_no_thin_window(monkeypatch, config, circuit, params, kernel,
+                                             ops, rounded):
     """Host only: the other two configurations of the benchmark, planned
     with the H100's admission, hold no window on a thin trailing row
     segment, so their plans are what they were before the register path
-    took such windows: every sweep a kernel window or a single op."""
+    took such windows: every sweep a kernel window or a single op. QPE-28's
+    phase product, whose log-magnitude rounds to 1 in float32, is a kernel
+    window of its own (``WindowProgram.mag_rounded``); QFT-32's controlled
+    phases are unit-modulus and need no such rule."""
     _on_the_h100(monkeypatch)
     cfg = json.loads((ROOT / "portbench" / "configs" / f"{config}.json").read_text())
     b = LocalBuilder(dtype="f32", device="cpu", kernel_ok=True)
     circuit.build(b, cfg, params)
     cc = b.compile()
     assert cc.sweep_counts() == {"kwindow": kernel, "window": 0, "op": ops}
+    assert sum(p[2].mag_rounded for kind, p, _ in _sweeps(cc) if kind == "kwindow") == rounded
     for kind, payload, _ in _sweeps(cc):
         if kind == "kwindow":
             seg, _, prog = payload
