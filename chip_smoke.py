@@ -51,7 +51,8 @@ turns), one window per redesigned step kind and the element-wise h = 4
 windows alone (``step_breakdown``), the swap pass of QFT-28, QPE-28 and Shor-28 by part
 (``swap_breakdown``: with cross pairs, the whole op as one launch against
 the plain pair of passes it replaces), every sweep of QPE-28 and Shor-28
-(``circuit_breakdown``) and the copy floor (``copy_floor``), each beside its
+(``circuit_breakdown``), Shor-28's monomial passes (``monomial_breakdown``)
+and the copy floor (``copy_floor``), each beside its
 bound: the larger of the bytes it must move at 3.35 TB/s and its 3xTF32
 tensor-core flops at 495 TFLOP/s, and, where there is one, the one PyTorch
 call that computes the same function.
@@ -159,8 +160,11 @@ def window_bound(prog, n: int):
 #: ``window_sweep`` counts every launch of the window kernel,
 #: ``window_stream`` the launches of its register-streaming path;
 #: ``row_swap`` the row-pair kernel and ``row_swap_cross`` the cross kernel
-#: of ``row_swap.cu``. Every name but ``row_swap_cross`` is also a source.
-LAUNCH_NAMES = ("window_sweep", "window_stream", "row_swap", "row_swap_cross", "plane_copy")
+#: of ``row_swap.cu``; ``monomial_pass`` the monomial pass (Shor-28's
+#: controlled permutations). Every name but ``row_swap_cross`` is also a
+#: source.
+LAUNCH_NAMES = ("window_sweep", "window_stream", "row_swap", "row_swap_cross", "plane_copy",
+                "monomial_pass")
 
 
 def tile_twin(prog):
@@ -624,11 +628,17 @@ def builder_circuit(build):
     return make
 
 
+#: The kernels that ``CompiledCircuit.run`` keeps off with its kernel
+#: policy (``run_sweeps``'s ``swap_kernel``): the plain path launches none.
+PERMUTATION_KERNELS = ("row_swap", "row_swap_cross", "plane_copy", "monomial_pass")
+
+
 def run_circuit(name, make, check):
-    """Compile the same circuit twice (kernel path, plain path), run the
-    kernel path once with every launch counter zeroed just before and read
-    just after, check both results, and time both paths. ``make(kernel)``
-    returns ``(compiled circuit, initial index, handles)``."""
+    """Compile the same circuit twice (kernel path, plain path), run each
+    path once with every launch counter zeroed just before and read just
+    after (the plain path must launch none of ``PERMUTATION_KERNELS``),
+    check both results, and time both paths. ``make(kernel)`` returns
+    ``(compiled circuit, initial index, handles)``."""
     import torch
 
     from rustqip_tpu_torch.utils import observe
@@ -640,8 +650,8 @@ def run_circuit(name, make, check):
         gen = torch.Generator()
         gen.manual_seed(7)
         torch.cuda.synchronize()
+        reset_launches()
         if kernel:
-            reset_launches()
             cross_plain = observe.COUNTS["swap_cross_plain"]
         re, im, res = cc.run(init, generator=gen)
         torch.cuda.synchronize()
@@ -649,6 +659,8 @@ def run_circuit(name, make, check):
             launches = read_launches()
             kinds = read_kinds()
             cross_plain = observe.COUNTS["swap_cross_plain"] - cross_plain
+        elif any(read_launches()[k] for k in PERMUTATION_KERNELS):
+            raise AssertionError(f"{name}: the plain path launched {read_launches()}")
         check(re, im, res, handles)
         # the plain path was just run once: time one more run of it
         ms = cuda_ms(lambda: cc.run(init, generator=gen),
@@ -670,6 +682,17 @@ def run_circuit(name, make, check):
     del out
     torch.cuda.empty_cache()
     return row, launches, kcc
+
+
+def monomial_plans(cc):
+    """The monomial plans (``monomial.plan_of``) of a compiled circuit's
+    single-op sweeps, in run order, a repeated body's once a repetition."""
+    from rustqip_tpu_torch.engine import monomial
+
+    runs = [seg if isinstance(seg, list) else seg[2] * seg[1]
+            for seg in cc.sweeps if isinstance(seg, (list, tuple))]
+    return [plan for run in runs for k, p, _ in run if k == "op"
+            for plan in [monomial.plan_of(cc.n, p)] if plan is not None]
 
 
 def _basis_index(n, regs_values):
@@ -861,6 +884,7 @@ def phase_main():
     # QFT-28's and QPE-28's swaps hold cross pairs: the cross kernel takes
     # their row pairs too
     must_launch = {"row_swap": {"shor28", "controlled_wide_swap28"},
+                   "monomial_pass": {"shor28"},
                    "row_swap_cross": {"qft28", "qpe28"},
                    "plane_copy": {"controlled_wide_swap28"},
                    "window_stream": {"qft28", "grover28_iteration_gate"}}
@@ -878,6 +902,10 @@ def phase_main():
             raise AssertionError(f"{name}: plane_copy launched {launches['plane_copy']} times")
         if name in must_launch["row_swap_cross"] and row["swap_cross_plain"]:
             raise AssertionError(f"{name}: a swap's cross pairs ran as plain passes")
+        if launches["monomial_pass"] != len(monomial_plans(cc)):
+            # one launch for each op of the plan that is a monomial pass
+            raise AssertionError(f"{name}: {launches['monomial_pass']} monomial launches "
+                                 f"for {len(monomial_plans(cc))} monomial ops")
         ccs[name] = cc
         total.update(launches)
         kind_launches.update(row["kind_launches"])
@@ -1886,7 +1914,7 @@ def phase_state_api():
     lane = make_matrix_op([n - 2, n - 1], u.reshape(-1))
     lane_out, launches = counted(lambda: apply_op(n, lane, state))
     if launches != {"window_sweep": 1, "window_stream": 0, "row_swap": 0, "row_swap_cross": 0,
-                    "plane_copy": 0}:
+                    "plane_copy": 0, "monomial_pass": 0}:
         raise AssertionError(f"state API: lane apply_op launched {launches}")
     B = _dense_plan(n, lane.indices, _mat_key(lane.data))[1]
     re, im = _split(n, state, None)
@@ -1911,7 +1939,7 @@ def phase_state_api():
     swap = make_swap_op(*zip(*pairs))
     sw_out, launches = counted(lambda: apply_op(n, swap, state))
     if launches != {"window_sweep": 0, "window_stream": 0, "row_swap": 1, "row_swap_cross": 0,
-                    "plane_copy": 0}:
+                    "plane_copy": 0, "monomial_pass": 0}:
         raise AssertionError(f"state API: row-pair SwapOp launched {launches}")
     if not torch.equal(sw_out, _join(*row_swap_reference(n, pairs, *_split(n, state, None)))):
         raise AssertionError("state API: row-pair SwapOp differs from the plain permutation")
@@ -2542,6 +2570,66 @@ def phase_circuit_breakdown(ccs):
               "ms_sum": sum(r["ms"] for r in rows), "sweeps": rows})
 
 
+def phase_monomial_breakdown(ccs):
+    """Shor-28's 19 monomial passes (its controlled multiplications), each
+    alone on a seeded random state: the kernel in place against its plain
+    version (``monomial_pass_reference``) and against the one PyTorch call
+    that computes the same permutation (``index_select`` of the stacked
+    planes by every amplitude's source index), all equal at a tolerance of
+    0; ms of the kernel, of the plain version and of the library call, and
+    the bound: one read and one write of both planes of the amplitudes the
+    control selects at the HBM rate. Returns the sums for the
+    ``monomial_pass`` entry of the ``kernels`` line."""
+    import torch
+
+    from rustqip_tpu_torch.engine import monomial
+
+    n = N_MAIN
+    plans = monomial_plans(ccs["shor28"])
+    if len(plans) != 19:
+        raise AssertionError(f"Shor-28: {len(plans)} monomial passes, want 19")
+    x = torch.stack(seeded_state(n, 23, "cuda"))
+    flat = torch.arange(1 << n, dtype=torch.int64, device="cuda")
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    rows = []
+    for plan in plans:
+        kr, ki = monomial.monomial_pass(n, plan, x[0].clone(), x[1].clone(), inplace=True)
+        pr, pi = monomial.monomial_pass_reference(n, plan, x[0].clone(), x[1].clone())
+        # every amplitude's source: the same place outside the selected
+        # segments, else the segment's own base plus its source's offset
+        off = torch.as_tensor(plan.offsets(), device="cuda")
+        local = torch.zeros_like(flat)
+        for j, bit in enumerate(plan.tbits):
+            local |= ((flat >> bit) & 1) << j
+        src = (flat & ~int(off[-1])) + off[torch.as_tensor(plan.src, device="cuda")][local]
+        src = torch.where((flat & plan.cval) == plan.cval, src, flat)
+        del local
+        xs = x.view(2, -1)
+        lib = xs.index_select(1, src)
+        torch.cuda.synchronize()
+        if not (torch.equal(kr, pr) and torch.equal(ki, pi)):
+            raise AssertionError("Shor-28: the monomial kernel differs from its plain version")
+        if not (torch.equal(lib[0].view_as(kr), kr) and torch.equal(lib[1].view_as(ki), ki)):
+            raise AssertionError("Shor-28: the library gather differs from the monomial kernel")
+        del lib
+        row = {"targets": len(plan.tbits), "controls": len(plan.cbits),
+               "ms": cuda_ms(lambda: monomial.monomial_pass(n, plan, kr, ki, inplace=True)),
+               "plain_ms": cuda_ms(lambda: monomial.monomial_pass_reference(n, plan, pr, pi)),
+               "library_ms": cuda_ms(lambda: xs.index_select(1, src)),
+               "bound_ms": plan.least_bytes(4) / HBM_BYTES_PER_S * 1e3}
+        rows.append(row)
+        for k in totals:
+            totals[k] += row[k]
+        del kr, ki, pr, pi, src
+        torch.cuda.empty_cache()
+    del x, flat
+    torch.cuda.empty_cache()
+    emit({"phase": "monomial_breakdown", "circuit": "shor28", "n": n, "passes": rows,
+          "library_call": "index_select of the stacked (2, 2^n) planes by source index",
+          **totals, "bound_share": totals["bound_ms"] / totals["ms"]})
+    return totals
+
+
 def phase_copy_floor():
     """One read and one write of the n = 28 float32 plane pair: the copy
     kernel to fresh planes and in place, with 1 and 4 strips of each plane,
@@ -2662,6 +2750,7 @@ def main() -> int:
     step_err, mix_library, lane_matmul = phase_step_breakdown(ccs)
     swap, cross_swap = phase_swap_breakdown(ccs)
     phase_circuit_breakdown(ccs)
+    mono = phase_monomial_breakdown(ccs)
     copy = phase_copy_floor()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [
@@ -2746,6 +2835,23 @@ def main() -> int:
             "capacity_n32": {"ms": cap_parts["swap_pass_ms"],
                              "plain_ms": cap_parts["plain_pair_ms"],
                              "bound_ms": cap_parts["swap_pass_bound_ms"]},
+        },
+        {
+            # ms, plain_ms, bound_ms, library_ms: Shor-28's 19 controlled
+            # multiplications, each alone in place, summed; equal to the
+            # plain version and to the library gather at a tolerance of 0;
+            # no TPU kernel: the JAX package runs them as dense passes
+            "name": "monomial_pass",
+            "route": "cuda",
+            "source": "rustqip_tpu_torch/csrc/monomial_pass.cu",
+            "replaces": None,
+            "launches": launches["monomial_pass"],
+            "max_abs_err": 0.0,
+            "ms": mono["ms"],
+            "plain_ms": mono["plain_ms"],
+            "bound_ms": mono["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": mono["library_ms"],
         },
         {
             # ms: a fresh copy with one strip per thread

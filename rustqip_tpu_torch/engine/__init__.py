@@ -7,7 +7,8 @@ module of the package; ``apply`` (host plans, plain passes) imports
 ``types``, ``errors``, ``utils.bits`` and ``ops.matrix_ops``; ``admission``
 imports ``types``, and ``cuda_build`` (the one seam to the kernel libraries)
 nothing of the package; the kernel wrappers (``window_kernel``,
-``row_swap``, ``copy_probe``) import those four; ``real_apply`` (planner,
+``row_swap``, ``copy_probe``, ``monomial``) import those four (``monomial``
+also ``ops.matrix_ops``, for the ops it checks); ``real_apply`` (planner,
 dispatch, state-vector API) imports all of them and ``utils.observe``;
 ``compile`` imports ``real_apply``; ``builder`` and ``parallel`` import both.
 

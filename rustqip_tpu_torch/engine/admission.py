@@ -302,7 +302,11 @@ def kernel_policy(devices, dtype: torch.dtype, kernel_ok: "bool | None" = None) 
     else whether every one of ``devices`` is CUDA; never unless the planes'
     real ``dtype`` is float32 (the kernels are float32-only, as in the JAX
     package). The one rule that single-device circuits, per-call op runs
-    and sharded schedules read."""
+    and sharded schedules read, and that ``real_apply.apply_op_ri`` reads
+    for each monomial pass (``engine/monomial.py``) on its planes' device
+    and dtype: the pass's kernel on CUDA float32 planes, its plain version
+    on the CPU, for float64, and where the caller turns the permutation
+    kernels off (``swap_kernel=False``, passed here as ``kernel_ok``)."""
     if kernel_ok is None:
         kernel_ok = all(torch.device(d).type == "cuda" for d in devices)
     return bool(kernel_ok) and dtype == torch.float32

@@ -133,7 +133,9 @@ class CompiledCircuit:
             1 for e in self.entries if isinstance(e, MeasureEntry)
         )
         #: Whether unitary runs take the kernels (``admission.kernel_policy``:
-        #: by default on CUDA; never for float64, the JAX package's rule).
+        #: by default on CUDA; never for float64, the JAX package's rule):
+        #: the window kernel's sweeps, and in ``run`` the row-swap, copy and
+        #: monomial kernels (``run_sweeps``'s ``swap_kernel``).
         self._kernel_ok = kernel_policy([self.device], TORCH_REAL[self.rdtype], kernel_ok)
         #: Kernel admission: the Hopper rules for a CUDA state, the
         #: reference's elsewhere. Fusion and planning read the same object.
@@ -351,9 +353,11 @@ class CompiledCircuit:
                     m_i += 1
                 elif isinstance(seg, tuple):
                     for _ in range(seg[1]):
-                        re, im = run_sweeps(self.n, seg[2], re, im, inplace=True)
+                        re, im = run_sweeps(self.n, seg[2], re, im,
+                                            swap_kernel=self._kernel_ok, inplace=True)
                 else:
-                    re, im = run_sweeps(self.n, seg, re, im, inplace=True)
+                    re, im = run_sweeps(self.n, seg, re, im, swap_kernel=self._kernel_ok,
+                                        inplace=True)
                 if self._check_norm:
                     _norm_check_cb(measure_probs_ri(self.n, (), re, im)[0], s_i,
                                    self._norm_tol)

@@ -120,8 +120,9 @@ def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
 #: ``window_sweep`` every launch of the window kernel, ``window_stream`` its
 #: register path's among them, ``row_swap`` and ``row_swap_cross`` the
 #: row-pair and the cross kernel of ``row_swap.cu``, ``plane_copy`` the copy
-#: kernel; ``KIND_PREFIX + kind`` the window launches whose program holds a
-#: step of that kind.
+#: kernel, ``monomial_pass`` the monomial pass (``monomial_pass.cu``, loaded
+#: at its first launch); ``KIND_PREFIX + kind`` the window launches whose
+#: program holds a step of that kind.
 LAUNCHES: Counter = Counter()
 KIND_PREFIX = "window_kind:"
 

@@ -27,7 +27,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rustqip_tpu_torch.engine import copy_probe, row_swap, window_kernel
+from rustqip_tpu_torch.engine import copy_probe, monomial, row_swap, window_kernel
 from rustqip_tpu_torch.engine.admission import (
     TPU_REFERENCE,
     WINDOW_MAX_OPS,
@@ -172,7 +172,24 @@ def _dense_ri(n: int, indices, mat: np.ndarray, re, im, low_kernel=True) -> Pair
     )
 
 
-def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True, swap_kernel=True) -> Pair:
+def _monomial_ri(n: int, plan, re, im, swap_kernel: bool, inplace: bool) -> Pair:
+    """A monomial op's pass (``monomial.monomial_pass``), in the span
+    ``rq.op.monomial``: the kernel where ``kernel_policy`` takes the planes
+    and the caller keeps the permutation kernels on (``swap_kernel``), the
+    plain version otherwise; counted in ``observe.COUNTS["monomial_pass"]``
+    and ``["monomial_bytes"]`` (its least bytes) on every device."""
+    COUNTS["monomial_pass"] += 1
+    COUNTS["monomial_bytes"] += plan.least_bytes(re.element_size())
+    with span("rq.op.monomial"):
+        kernel = kernel_policy([re.device], re.dtype, None if swap_kernel else False)
+        return monomial.monomial_pass(n, plan, re, im, inplace, kernel)
+
+
+def _control_ri(n: int, op: ControlOp, re, im, low_kernel=True, swap_kernel=True,
+                inplace=False) -> Pair:
+    plan = monomial.plan_of(n, op)
+    if plan is not None:
+        return _monomial_ri(n, plan, re, im, swap_kernel, inplace)
     if op.num_indices <= DENSE_CAP:
         return _dense_ri(n, op.indices, op_to_dense(op), re, im, low_kernel)
     _, R, C = geometry(n)
@@ -209,10 +226,15 @@ def apply_op_ri(
     kernel (``c64_low_matmul``'s plain matmuls); ``swap_kernel=False``
     keeps a swap off the row-swap kernels (``row_swap_reference``,
     ``cross_row_swap_reference``) and a controlled swap off ``plane_copy``.
-    ``inplace`` says that the caller owns the planes: a swap's cross pairs
-    and a reflection then update them in place, in bounded scratch;
-    otherwise they write fresh planes (the row-swap kernel of a swap
-    without cross pairs updates its planes in place either way).
+    ``inplace`` says that the caller owns the planes: a swap's cross pairs,
+    a reflection and a monomial op then update them in place, in bounded
+    scratch; otherwise they write fresh planes (the row-swap kernel of a
+    swap without cross pairs updates its planes in place either way).
+
+    A dense op, or a controlled dense or sparse op, whose matrix is
+    monomial and not diagonal (``monomial.plan_of``, worked out at compile
+    time by ``compile_sweeps``) runs as one monomial pass, which
+    ``swap_kernel=False`` keeps off its kernel as it keeps the swaps'.
 
     A swap with cross pairs on the top row qubits runs in one pass, cross
     and row pairs together (``row_swap.cross_row_swap``); one with row
@@ -222,7 +244,9 @@ def apply_op_ri(
     run on CUDA with the swap kernels on.
 
     Each op runs in the span ``rq.op.<kind>`` (``observe.span``; a
-    controlled op's inner op in its own, inside ``rq.op.control``), and a
+    controlled op's inner op in its own, inside ``rq.op.control``; a
+    monomial pass in ``rq.op.monomial``, inside ``rq.op.dense`` or
+    ``rq.op.control``), and a
     swap adds the bytes its permutation moves to
     ``observe.COUNTS["swap_bytes"]``."""
     _, R, C = geometry(n)
@@ -232,6 +256,9 @@ def apply_op_ri(
             return _phase_mul_ri(n, op, re, im)
     if isinstance(op, DenseOp):
         with span("rq.op.dense"):
+            plan = monomial.plan_of(n, op)
+            if plan is not None:
+                return _monomial_ri(n, plan, re, im, swap_kernel, inplace)
             return _dense_ri(n, op.indices, op.data, re, im, low_kernel)
     if isinstance(op, SparseOp):
         with span("rq.op.sparse"):
@@ -258,7 +285,7 @@ def apply_op_ri(
             return re, im
     if isinstance(op, ControlOp):
         with span("rq.op.control"):
-            return _control_ri(n, op, re, im, low_kernel, swap_kernel)
+            return _control_ri(n, op, re, im, low_kernel, swap_kernel, inplace)
     if isinstance(op, FnOp):
         with span("rq.op.fn"):
             return _fn_apply_planes(n, op, re, im)
@@ -835,10 +862,17 @@ def compile_sweeps(
     device=None,
 ):
     """Plan an op run once and encode each kernel window's step program
-    (uploaded to ``device`` when given): the per-run work that
+    (uploaded to ``device`` when given), and work out each single op's
+    monomial plan (``monomial.plan_of``, kept on the op; its kernel tables
+    uploaded where the kernels may take it): the per-run work that
     ``run_sweeps`` then repeats is only the sweeps themselves."""
+    on_cuda = device is not None and torch.device(device).type == "cuda"
     out = []
     for kind, payload, run in plan_sweeps(n, ops, kernel_ok, admission):
+        if kind == "op":
+            plan = monomial.plan_of(n, payload)
+            if plan is not None and on_cuda:
+                plan.tables(device)
         if kind == "kwindow":
             hq, steps = payload
             seg = tuple(window_seg_sizes(n, hq))
@@ -847,7 +881,7 @@ def compile_sweeps(
             prog.mag_rounded = any(
                 _mag_rounded(n, op, admission.diag_mag_max) for op in run
             )
-            if device is not None and torch.device(device).type == "cuda":
+            if on_cuda:
                 prog.tensors(device)
             payload = (seg, ksteps, prog)
         out.append((kind, payload, run))
@@ -862,8 +896,9 @@ def run_sweeps(
     update their planes in place. ``low_kernel=False`` also keeps
     ``c64_low_matmul`` off the kernel, so a plan without kernel windows
     launches no window kernel at all (the sharded GSPMD counterpart);
-    ``swap_kernel=False`` keeps the row-swap and copy kernels off too, so
-    such a plan launches no kernel at all (the plain path). ``inplace``
+    ``swap_kernel=False`` keeps the row-swap, copy and monomial kernels off
+    too, so such a plan launches no kernel at all (the plain path);
+    ``CompiledCircuit.run`` passes its kernel policy here. ``inplace``
     (the caller owns the planes) goes to ``apply_op_ri``. A kernel window
     runs in the span ``rq.sweep.kernel``, a plain one in
     ``rq.sweep.window``; a plain strip window (h >= 1) is counted in

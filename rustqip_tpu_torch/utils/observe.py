@@ -21,9 +21,10 @@ The program's spans (``span``, named ``rq.<stage>``) mark its stages in a
 ``torch.profiler`` trace, on the profiler's clock beside the device's
 kernels: ``rq.compile`` (``.lower``, ``.fuse``, ``.sweeps``), ``rq.run``
 (``.input``), ``rq.sweep.kernel`` / ``rq.sweep.window`` per window,
-``rq.op.<kind>`` per single-op pass and ``rq.measure.probs`` / ``.draw`` /
-``.collapse``. With no profiler active they cost one flag check. Its
-counts (``COUNTS``) are kept whether or not a profiler runs.
+``rq.op.<kind>`` per single-op pass (a monomial pass in ``rq.op.monomial``
+inside ``rq.op.dense`` or ``rq.op.control``) and ``rq.measure.probs`` /
+``.draw`` / ``.collapse``. With no profiler active they cost one flag
+check. Its counts (``COUNTS``) are kept whether or not a profiler runs.
 """
 
 from __future__ import annotations
@@ -58,6 +59,11 @@ from rustqip_tpu_torch.types import TORCH_REAL, geometry
 #: ``diag_mag_rounded``, the kernel windows run whose diag steps left out
 #: a diagonal's log-magnitude that rounds to 1 in float32
 #: (``HopperSmemAdmission.diag_mag_max``);
+#: ``monomial_pass``, the monomial passes run (``engine/monomial.py``: an
+#: op whose matrix is a permutation with phases, on the kernel or its plain
+#: version), and ``monomial_bytes``, their least bytes (each touched
+#: amplitude read once and written once on both planes:
+#: ``MonomialPlan.least_bytes``);
 #: ``circuit_runs``, the runs of a ``CompiledCircuit``.
 COUNTS: Counter = Counter()
 

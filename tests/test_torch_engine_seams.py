@@ -93,3 +93,29 @@ def test_bottom_of_the_engine_imports_only_downward(source, allowed):
     """The plane format, the plain passes, the admission and the kernel
     seam import only the package modules below them."""
     assert _package_imports(PACKAGE / source) <= allowed
+
+
+@pytest.mark.parametrize("kernel_ok", [True, False], ids=["on", "off"])
+def test_compiled_run_keeps_the_monomial_kernel_to_its_policy(monkeypatch, kernel_ok):
+    """``CompiledCircuit.run`` hands its kernel policy to the monomial pass:
+    with ``kernel_policy`` answering as on a CUDA device, a circuit compiled
+    with the kernels off asks every pass for the plain version, one with
+    them on asks for the kernel (which a CPU plane then declines)."""
+    from rustqip_tpu_torch.algos import shor_period_circuit
+    from rustqip_tpu_torch.engine import monomial, real_apply
+    from rustqip_tpu_torch.prelude import LocalBuilder
+
+    asked = []
+    plain_pass = monomial.monomial_pass
+
+    def recorded(n, plan, xr, xi, inplace=False, kernel=True):
+        asked.append(kernel)
+        return plain_pass(n, plan, xr, xi, inplace, kernel)
+
+    monkeypatch.setattr(real_apply, "kernel_policy",
+                        lambda devices, dtype, ok=None: True if ok is None else ok)
+    monkeypatch.setattr(monomial, "monomial_pass", recorded)
+    b = LocalBuilder(dtype="f32", device="cpu", kernel_ok=kernel_ok)
+    shor_period_circuit(b, 2, 1007, t=3)
+    b.compile().run(0, generator=torch.Generator().manual_seed(1))
+    assert asked == [kernel_ok] * 3
